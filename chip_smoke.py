@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card and check them.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -20,7 +21,22 @@ Phases, each of which asserts:
    finite. Every attention call must have gone through the kernel;
 6. times: the kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` at the serving shape, beside the
-   kernel's bound, and the bf16 serving rate.
+   kernel's bound, and the bf16 serving rate;
+7. backward kernels: dQ, dK and dV of the dq and dkv kernels against the
+   plain backward over the cases of phase 3, and the same cases through the
+   autograd Function against autograd of the plain forward;
+8. training parity: 3 f32 steps of ``make_lm_train_step`` at the width of
+   phase 5 cut to 2 layers, batch 2 x 513 tokens, through the kernels and
+   through dense attention from the same weights; loss and grad norm agree
+   step by step;
+9. training (the main path of this slice; launches counted here): the
+   transformer of phase 5 at full depth, bf16, remat on, default AdamW,
+   batch 8 x 1025 tokens: 1 warm-up step and 5 measured steps on one seeded
+   batch; losses finite and falling, 2 x n_layers forward and n_layers dq
+   and dkv launches a step; step time, tokens/s, peak memory;
+10. backward times: each backward kernel, the plain backward and PyTorch's
+   SDPA backward at the training shape, beside each kernel's bound, and the
+   attention kernels' share of a training step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -55,6 +71,20 @@ SERVE_WIDTH = dict(vocab_size=32000, d_model=1024, n_layers=12, n_heads=16,
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Gradients: f32 at the reference's grad tolerance (tests/test_ops.py). bf16
+# at GRAD_REL_BF16 of the largest |grad| in the case: kernel and plain
+# version compute in f32 from the same bf16 inputs and round each gradient
+# once to bf16, so they differ by about one bf16 step (2^-7 relative) of the
+# largest value, plus f32 summation order.
+GRAD_TOL_F32 = 2e-4
+GRAD_REL_BF16 = 1e-2
+# Training: phase 8 cuts SERVE_WIDTH to 2 layers; phase 9 runs it in full.
+PARITY_WIDTH = dict(SERVE_WIDTH, n_layers=2)
+PARITY_BATCH = (2, 513)
+PARITY_STEPS = 3
+TRAIN_RTOL = 1e-4
+TRAIN_BATCH = (8, 1025)
+TRAIN_STEPS = 5      # measured, after one warm-up step
 
 
 def log(msg: str) -> None:
@@ -99,6 +129,19 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _bound(nbytes, flops, dtype):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over the peak rate for the input type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kept_pairs(Lq, Lk, causal):
+    """(row, col) pairs a head that the mask keeps (top-left causal)."""
+    return sum(min(r + 1, Lk) for r in range(Lq)) if causal else Lq * Lk
+
+
 def attention_bound(B, Lq, Lk, H, D, dtype, causal):
     """Least time (ms) an H100 needs for the forward: the larger of the bytes
     (q, k, v read once; O and the f32 LSE written once) over the HBM rate
@@ -106,12 +149,20 @@ def attention_bound(B, Lq, Lk, H, D, dtype, causal):
     over the peak rate for the input type."""
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = elt * (2 * B * Lq * H * D + 2 * B * Lk * H * D) + 4 * B * H * Lq
-    pairs = (sum(min(r + 1, Lk) for r in range(Lq)) if causal
-             else Lq * Lk)
-    flops = 4.0 * B * H * D * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    flops = 4.0 * B * H * D * _kept_pairs(Lq, Lk, causal)
+    return _bound(nbytes, flops, dtype)
+
+
+def backward_bounds(B, Lq, Lk, H, D, dtype, causal):
+    """Least time (ms) an H100 needs for each backward kernel, as
+    ``{"dq": (ms, by), "dkv": (ms, by)}``. Both read q, k, v, dO and the f32
+    LSE and Delta once; dq writes dQ (three dots: S, dP, dQ), dkv writes dK
+    and dV (four dots: S, dP, dV, dK), on the pairs the mask keeps."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    reads = elt * (2 * B * Lq * H * D + 2 * B * Lk * H * D) + 8 * B * H * Lq
+    dot = 2.0 * B * H * D * _kept_pairs(Lq, Lk, causal)
+    return {"dq": _bound(reads + elt * B * Lq * H * D, 3 * dot, dtype),
+            "dkv": _bound(reads + 2 * elt * B * Lk * H * D, 4 * dot, dtype)}
 
 
 def random_qkv(gen, B, Lq, Lk, H, D, dtype, device):
@@ -121,9 +172,8 @@ def random_qkv(gen, B, Lq, Lk, H, D, dtype, device):
     return draw(Lq), draw(Lk), draw(Lk)
 
 
-def check_kernel(fa, device) -> None:
-    """Phase 3: kernel against the plain version, O and LSE."""
-    gen = torch.Generator(device=device).manual_seed(SEED)
+def kernel_cases():
+    """(B, Lq, Lk, H, D, dtype, causal) of the kernel-vs-plain phases."""
     cases = [(2, L, L, 2, D, dt, c)
              for D in (16, 32, 64, 128)
              for L in (256, 1024, 200)
@@ -133,6 +183,13 @@ def check_kernel(fa, device) -> None:
               for (Lq, Lk) in ((200, 333), (384, 128))
               for dt in (torch.float32, torch.bfloat16)
               for c in (True, False)]
+    return cases
+
+
+def check_kernel(fa, device) -> None:
+    """Phase 3: kernel against the plain version, O and LSE."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = kernel_cases()
     before = fa.launches
     worst = {}
     for (B, Lq, Lk, H, D, dt, causal) in cases:
@@ -289,6 +346,204 @@ def serve_phase(fa, device, width=SERVE_WIDTH, n_requests=N_REQUESTS):
                 n_layers=cfg16.n_layers)
 
 
+def assert_grads_close(got, want, dtype, case):
+    """Largest |error| over the three gradients, after checking each at
+    GRAD_TOL_F32 (f32) or GRAD_REL_BF16 of its largest |value| (bf16)."""
+    worst = 0.0
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, (name, case)
+        if dtype == torch.float32:
+            tol = dict(rtol=GRAD_TOL_F32, atol=GRAD_TOL_F32)
+        else:
+            tol = dict(rtol=GRAD_REL_BF16,
+                       atol=GRAD_REL_BF16 * w.float().abs().max().item())
+        torch.testing.assert_close(g.float(), w.float(), **tol,
+                                   msg=lambda m: f"{name} differs, {case}: "
+                                                 f"{m}")
+        worst = max(worst, (g.float() - w.float()).abs().max().item())
+    return worst
+
+
+def check_backward(fa, device) -> None:
+    """Phase 7: the dq and dkv kernels against the plain backward; then the
+    same cases through ``_FlashAttention`` against autograd of the plain
+    forward."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    cases = kernel_cases()
+    worst = {}
+    before = (fa.dq_launches, fa.dkv_launches)
+    for (B, Lq, Lk, H, D, dt, causal) in cases:
+        case = f"B={B} Lq={Lq} Lk={Lk} H={H} D={D} {dt} causal={causal}"
+        q, k, v = random_qkv(gen, B, Lq, Lk, H, D, dt, device)
+        do = torch.randn(q.shape, generator=gen, device=device).to(dt)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        err = assert_grads_close(got, want, dt, case)
+        worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+        if causal and Lk > Lq:  # K rows no query reaches: exact zeros
+            assert not got[1][:, Lq:].any(), case
+            assert not got[2][:, Lq:].any(), case
+    assert (fa.dq_launches, fa.dkv_launches) == (
+        before[0] + len(cases), before[1] + len(cases)), before
+    log(f"[backward] {len(cases)} cases: dq and dkv kernels agree with the "
+        f"plain backward (f32 at {GRAD_TOL_F32}, bf16 at {GRAD_REL_BF16} of "
+        f"the largest |grad|); largest |error| {worst}")
+
+    worst = {}
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    for (B, Lq, Lk, H, D, dt, causal) in cases:
+        case = f"autograd B={B} Lq={Lq} Lk={Lk} D={D} {dt} causal={causal}"
+        q, k, v = (t.requires_grad_() for t in
+                   random_qkv(gen, B, Lq, Lk, H, D, dt, device))
+        do = torch.randn(q.shape, generator=gen, device=device).to(dt)
+        out = fa.flash_attention(q, k, v, causal)
+        assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+        got = torch.autograd.grad(out, (q, k, v), do)
+        ref, _ = fa.flash_attention_reference(q, k, v, causal)
+        want = torch.autograd.grad(ref, (q, k, v), do)
+        torch.cuda.synchronize()
+        err = assert_grads_close(got, want, dt, case)
+        worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+    n = len(cases)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
+        before[0] + n, before[1] + n, before[2] + n), before
+    log(f"[backward] the same {n} cases through the autograd Function agree "
+        f"with autograd of the plain forward; largest |error| {worst}")
+
+
+def train_trajectory(cfg, params, tokens, steps, device):
+    """(loss, grad_norm) of ``steps`` steps of ``make_lm_train_step`` from
+    a copy of ``params`` on one batch."""
+    from ray_tpu_torch.train import make_lm_train_step
+    init_fn, step_fn, shard_batch = make_lm_train_step(cfg, device=device)
+    state = init_fn(params=params)
+    batch = shard_batch(tokens)
+    out = []
+    for _ in range(steps):
+        state, metrics = step_fn(state, batch)
+        out.append((metrics["loss"].item(), metrics["grad_norm"].item()))
+    return out
+
+
+def train_parity_phase(device, width=PARITY_WIDTH, batch=PARITY_BATCH,
+                       steps=PARITY_STEPS):
+    """Phase 8: f32 steps through the kernels against dense attention (TF32
+    off), from the same weights on the same batch."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    tokens = np.random.default_rng(SEED + 3).integers(
+        0, width["vocab_size"], size=batch)
+    flash = TransformerConfig(**width, dtype=torch.float32, use_flash=True)
+    dense = TransformerConfig(**width, dtype=torch.float32, use_flash=False)
+    params = transformer.init_params(
+        flash, torch.Generator(device=device).manual_seed(SEED + 3), device)
+    got = train_trajectory(flash, params, tokens, steps, device)
+    want = train_trajectory(dense, params, tokens, steps, device)
+    np.testing.assert_allclose(got, want, rtol=TRAIN_RTOL)
+    log(f"[train] f32 parity, {width['n_layers']} layers at d_model "
+        f"{width['d_model']}, batch {batch[0]} x {batch[1]}: (loss, grad "
+        f"norm) through the kernels {got} vs dense attention {want}, "
+        f"rtol {TRAIN_RTOL}")
+
+
+def launch_counts(fa):
+    return (fa.launches, fa.dq_launches, fa.dkv_launches)
+
+
+def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
+                steps=TRAIN_STEPS):
+    """Phase 9, the training path: bf16 steps at full depth with remat."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.train import make_lm_train_step
+    cfg = TransformerConfig(**width, dtype=torch.bfloat16, use_flash=True)
+    assert cfg.remat
+    n = cfg.n_layers
+    per_step = (2 * n, n, n)  # remat recomputes each block's forward
+    init_fn, step_fn, shard_batch = make_lm_train_step(cfg, device=device)
+    state = init_fn(torch.Generator(device=device).manual_seed(SEED))
+    n_params = transformer.num_params(state[0])
+    tokens = shard_batch(np.random.default_rng(SEED + 4).integers(
+        0, width["vocab_size"], size=batch))
+
+    def one_step(state):
+        before = launch_counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        loss = metrics["loss"].item()
+        grad_norm = metrics["grad_norm"].item()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = tuple(a - b for a, b in zip(launch_counts(fa), before))
+        assert got == per_step, (got, per_step)
+        return state, loss, grad_norm, seconds
+
+    state, loss, grad_norm, warm_s = one_step(state)     # warm-up
+    losses, norms, times = [loss], [grad_norm], []
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    for _ in range(steps):
+        state, loss, grad_norm, seconds = one_step(state)
+        losses.append(loss)
+        norms.append(grad_norm)
+        times.append(seconds)
+    launches = launch_counts(fa)
+    assert launches == tuple(steps * c for c in per_step), launches
+    assert all(np.isfinite(losses + norms)), (losses, norms)
+    assert losses[-1] < losses[0], losses
+    step_s = statistics.median(times)
+    n_tokens = batch[0] * (batch[1] - 1)
+    out = dict(launches=launches, step_ms=step_s * 1e3,
+               tokens_per_s=n_tokens / step_s,
+               # bench.py's count: 6 FLOPs a parameter a token (2 forward,
+               # 4 backward), remat's recompute not counted.
+               model_tflops=6.0 * n_params * n_tokens / step_s / 1e12,
+               peak_bytes=torch.cuda.max_memory_allocated(), n_layers=n)
+    log(f"[train] bf16, {n_params / 1e6:.1f} M parameters, {n} layers, remat,"
+        f" batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
+        f"{norms}; warm-up step {warm_s:.3f} s; launches a step "
+        f"{per_step} (forward, dq, dkv); {launches} in {steps} steps")
+    return out
+
+
+def backward_times(fa, device, B, L, H, D, dt):
+    """Phase 10: each backward kernel, the plain backward and the SDPA
+    backward (``torch.autograd.grad`` on its output: the yardstick for the
+    pair, never called by the port) on one causal input, with the kernels'
+    largest |error| against the plain backward and their bounds."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    q, k, v = random_qkv(gen, B, L, L, H, D, dt, device)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    assert_grads_close(got, want, dt, "training shape")
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    del got, want
+    scale = 1.0 / D ** 0.5
+    delta = fa.attention_delta(out, do)
+    res = dict(dq_err=errs[0], dkv_err=max(errs[1:]))
+    res["dq_ms"] = time_ms(lambda: fa._launch_dq(q, k, v, do, lse, delta,
+                                                 True, scale))
+    res["dkv_ms"] = time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta,
+                                                   True, scale))
+    res["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, True), reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    res["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    bounds = backward_bounds(B, L, L, H, D, dt, True)
+    res["dq_bound"], res["dkv_bound"] = bounds["dq"], bounds["dkv"]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -363,19 +618,75 @@ def main() -> int:
         f"{served['n_layers']} launches = "
         f"{100 * served['n_layers'] * ms / served['forward_ms']:.1f}% of "
         f"the batch forward")
+    del q, k, v, qt, kt, vt
 
+    # 7. backward kernels against their plain versions
+    check_backward(fa, device)
+
+    # 8. f32 training through the kernels against dense attention
+    train_parity_phase(device)
+
+    # 9. the training path (the main path of this slice; launches counted)
+    trained = train_phase(fa, device)
+    log(f"[times] {card}: bf16 training step {trained['step_ms']:.3f} ms "
+        f"(median of {TRAIN_STEPS}), {trained['tokens_per_s']:.0f} tokens/s,"
+        f" {trained['model_tflops']:.1f} model TFLOP/s (6 x params x tokens),"
+        f" peak memory {trained['peak_bytes'] / 2**30:.2f} GiB")
+
+    # 10. backward kernel times at the training shape
+    bwd = backward_times(fa, device, B, L, H, D, dt)
+    n, step_ms = trained["n_layers"], trained["step_ms"]
+    parts = {"forward": 2 * n * ms, "dq": n * bwd["dq_ms"],
+             "dkv": n * bwd["dkv_ms"]}
+    share = sum(parts.values()) / step_ms
+    split = ", ".join(f"{k} {v:.3f} ms ({100 * v / step_ms:.1f}%)"
+                      for k, v in parts.items())
+    log(f"[times] {card}: backward B={B} L={L} H={H} D={D} bf16 causal: "
+        f"dq kernel {bwd['dq_ms']:.4f} ms (bound {bwd['dq_bound'][0]:.4f} "
+        f"ms, {bwd['dq_bound'][1]}), dkv kernel {bwd['dkv_ms']:.4f} ms "
+        f"(bound {bwd['dkv_bound'][0]:.4f} ms, {bwd['dkv_bound'][1]}), plain"
+        f" backward {bwd['plain_ms']:.4f} ms, SDPA backward "
+        f"{bwd['library_ms']:.4f} ms; per training step {2 * n} forward + "
+        f"{n} dq + {n} dkv launches = {100 * share:.1f}% of the "
+        f"{step_ms:.3f} ms step: {split}")
+
+    fwd_launches, dq_launches, dkv_launches = trained["launches"]
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:45",
-        "launches": served["launches"],
+        "launches": fwd_launches,
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "flash_attention_dq",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:144",
+        "launches": dq_launches,
+        "max_abs_err": bwd["dq_err"],
+        "ms": bwd["dq_ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["dq_bound"][0],
+        "bound_by": bwd["dq_bound"][1],
+        "library_ms": bwd["library_ms"],
+    }, {
+        "name": "flash_attention_dkv",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:190",
+        "launches": dkv_launches,
+        "max_abs_err": bwd["dkv_err"],
+        "ms": bwd["dkv_ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["dkv_bound"][0],
+        "bound_by": bwd["dkv_bound"][1],
+        "library_ms": bwd["library_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

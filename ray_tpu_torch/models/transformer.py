@@ -1,4 +1,4 @@
-"""Flagship model: decoder-only transformer, forward pass in PyTorch.
+"""Flagship model: decoder-only transformer in PyTorch, forward and loss.
 
 Port of ``ray_tpu/models/transformer.py`` with the same numerics:
 - the parameter tree keeps the JAX layout, blocks stacked on a leading
@@ -6,17 +6,24 @@ Port of ``ray_tpu/models/transformer.py`` with the same numerics:
   ``params_from_numpy`` carries JAX weights across unchanged;
 - bf16 activations with f32 RMSNorm and softmax, RoPE (half-split
   rotation), SwiGLU MLP (``wi`` gate, ``wg`` up), untied f32-logit head;
-- attention runs the CUDA flash-attention kernel (``ray_tpu_torch.ops``)
-  when ``use_flash`` is set, or the dense path of the JAX code otherwise.
+- attention runs the CUDA flash-attention kernels (``ray_tpu_torch.ops``;
+  forward, and dq/dkv under a gradient) when ``use_flash`` is set, or the
+  dense path of the JAX code otherwise;
+- ``loss_fn``/``head_and_loss``: next-token cross entropy on f32 logits.
 
 Weights are f32 master copies, cast to ``cfg.dtype`` at every use as the
-JAX code does. ``cast_params`` casts them once instead (for serving); the
-per-use casts are then no-ops and the numbers are identical, since a cast
-of the same f32 value always gives the same bf16 value.
+JAX code does, so gradients reach the f32 masters through the casts.
+``cast_params`` casts them once instead (for serving); the per-use casts
+are then no-ops and the numbers are identical, since a cast of the same
+f32 value always gives the same bf16 value.
 
-Forward only: ``jax.lax.scan`` is a Python loop over the stacked layers and
-``remat`` has no counterpart without a gradient. Ring attention over a
-``seq`` mesh axis waits for ``ray_tpu_torch.parallel``.
+``jax.lax.scan`` over the stacked layers is a Python loop over their
+``unbind``. ``remat`` (``jax.checkpoint`` per block) is
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per block
+when a gradient is being recorded: each block's activations are recomputed
+in the backward, so its attention forward runs twice per training step.
+Ring attention over a ``seq`` mesh axis waits for
+``ray_tpu_torch.parallel``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.ops.flash_attention import flash_attention
@@ -45,6 +53,7 @@ class TransformerConfig:
     d_ff: Optional[int] = None           # defaults to 4 * d_model (SwiGLU 8/3)
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
     use_flash: bool = True
     rope_theta: float = 10000.0
 
@@ -211,10 +220,17 @@ def backbone(params: Params, tokens: torch.Tensor,
     B, L = tokens.shape
     x = params["embed"].to(cfg.dtype)[tokens.long()]
     positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
-    blocks = params["blocks"]
+    # One unbind per stacked leaf: its backward stacks the layers' grads
+    # once, where indexing would scatter each layer into a full-size zero.
+    blocks = _tree_map(lambda t: t.unbind(0), params["blocks"])
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         layer = _tree_map(lambda t: t[i], blocks)
-        x = _block(layer, x, positions, cfg)
+        if remat:
+            x = checkpoint(_block, layer, x, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _block(layer, x, positions, cfg)
     return x
 
 
@@ -229,6 +245,28 @@ def apply(params: Params, tokens: torch.Tensor,
           cfg: TransformerConfig) -> torch.Tensor:
     """tokens: [B, L] integer -> logits [B, L, vocab] (float32)."""
     return head(params, backbone(params, tokens, cfg), cfg)
+
+
+def head_and_loss(params: Params, x: torch.Tensor, targets: torch.Tensor,
+                  cfg: TransformerConfig) -> torch.Tensor:
+    """Final norm + lm head + next-token cross entropy (mean over tokens),
+    on float32 logits."""
+    logp = torch.log_softmax(head(params, x, cfg), dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return nll.mean()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross entropy: tokens ``[B, L+1]`` serve as their own
+    labels (``tokens[:, 1:]`` given ``tokens[:, :-1]``)."""
+    x = backbone(params, tokens[:, :-1], cfg)
+    return head_and_loss(params, x, tokens[:, 1:], cfg)
+
+
+def leaves(params: Params):
+    """The parameter tree's tensors, in a fixed order."""
+    return list(_leaves(params))
 
 
 def num_params(params: Params) -> int:

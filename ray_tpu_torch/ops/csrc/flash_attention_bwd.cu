@@ -1,0 +1,531 @@
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: dQ, and dK with dV.
+//
+// Replaces the two Pallas TPU kernels that ray_tpu/ops/flash_attention.py's
+// _flash_bwd launches: _dq_kernel (dq_kernel here) and _dkv_kernel
+// (dkv_kernel here). Same function: from q [B, Lq, H, D], k/v [B, Lk, H, D],
+// the output gradient dO [B, Lq, H, D], and the f32 rows LSE and
+// Delta = rowsum(dO * O), both [B, H, Lq] and both computed before the
+// launch, each kernel recomputes S = scale * Q K^T and P = exp(S - LSE)
+// under the forward's mask (top-left causal, row >= col; pad columns
+// masked), then
+//   dP = dO V^T,   dS = P * (dP - Delta) * scale,
+//   dQ = dS K                        (dq_kernel),
+//   dV = P^T dO,   dK = dS^T Q       (dkv_kernel).
+//
+// What bounds them on an H100: at the training shape (B=8, L=1024, H=16,
+// D=64, bf16, causal: 524,800 kept (row, col) pairs a head) dq_kernel does
+// three dots, 25.8 GFLOP (26 us at the 989 TFLOP/s bf16 tensor-core rate),
+// and moves ~85 MB (25 us at 3.35 TB/s); dkv_kernel does four dots, 34.4
+// GFLOP (35 us), and moves ~102 MB (30 us). Both are bound by operations.
+// This first version stays far from that bound: every product is an f32
+// FMA (67 TFLOP/s peak outside the tensor cores) fed from shared memory,
+// loads do not overlap compute, and S and P are computed once in each
+// kernel, as on the TPU.
+//
+// Design.
+// - Two kernels, as on the TPU, so that neither needs atomics and both are
+//   deterministic. The TPU carried dQ (and dK, dV) in VMEM scratch across
+//   sequential grid steps; Hopper blocks run in no order, so each block
+//   owns one 64-row output tile and loops over the other operand's tiles
+//   itself, with the sums in registers (as the forward keeps m, l and O).
+// - dq_kernel: one block per (b*h, 64-row Q tile), Q tiles launched
+//   last-first so the longest causal rows start first; the loop over
+//   64-row K/V tiles stops at the causal diagonal (ik*BK < (iq+1)*BQ, as
+//   the TPU's `run`).
+// - dkv_kernel: one block per (b*h, 64-row K tile); the loop over 64-row Q
+//   tiles starts at the first tile the same rule lets through. A K tile no
+//   query reaches (causal, Lk > Lq) runs no iteration and writes exact
+//   zeros, as the TPU's zeroed scratch does at _finalize.
+// - 256 threads as a 16 x 16 grid, as in the forward: thread (ty, tx) owns
+//   rows ty*4 .. ty*4+3 of its block's tile and score columns tx + 16*j
+//   (j < 4) of the other tile, so each of its 16 scores needs no exchange;
+//   P or dS goes through shared memory once for the last dot(s), where the
+//   same thread owns output columns tx + 16*j (j < D/16).
+// - Inputs are upcast to f32 on load into shared memory; row strides are
+//   padded by one word against bank conflicts. At D=128 dq_kernel holds
+//   148,736 bytes of shared memory and dkv_kernel 165,888, above the 48 KB
+//   default, so each launch raises the dynamic shared-memory limit first.
+//   dkv_kernel then keeps 64 f32 sums a thread (dK and dV, 4 rows x 8
+//   columns each) in registers.
+// - Precision as in the forward: every product is an f32 FMA, for f32 and
+//   bf16 inputs alike (never TF32 or bf16 mma), so f32 gradients keep the
+//   reference's 2e-4 tolerance; each output is rounded once, to its dtype.
+// - Ragged edges as on the TPU: pad K/V rows of a last K tile and pad Q and
+//   dO rows of a last Q tile load as 0, their LSE and Delta as 0 (nothing is
+//   read past Lq or Lk), and the mask drops their scores with a select, so
+//   they add nothing to any sum.
+// - The kernels allocate nothing: the caller passes every output. They
+//   launch on the caller's stream and each entry point returns
+//   cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BQ = 64;        // Q rows per tile
+constexpr int BK = 64;        // K/V rows per tile
+constexpr int THREADS = 256;  // 16 x 16
+constexpr int TM = 4;         // tile rows per thread
+constexpr int TN = 4;         // score columns per thread
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;    // dO
+  const float* lse;    // [B, H, Lq]
+  const float* delta;  // [B, H, Lq]
+  void* dq;
+  void* dk;
+  void* dv;
+  int H, Lq, Lk, causal;
+  float scale;
+  // Element strides of the batch, sequence and head dims; D is contiguous.
+  long long q_sb, q_sl, q_sh;
+  long long k_sb, k_sl, k_sh;
+  long long v_sb, v_sl, v_sh;
+  long long do_sb, do_sl, do_sh;
+  long long dq_sb, dq_sl, dq_sh;
+  long long dk_sb, dk_sl, dk_sh;
+  long long dv_sb, dv_sl, dv_sh;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // q_s, do_s [BQ][D+1]; k_s, v_s [BK][D+1]; ds_s [BQ][BK+1]; all f32.
+  return sizeof(float) *
+         (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // k_s, v_s [BK][D+1]; q_s, do_s [BQ][D+1]; p_s, ds_s [BK][BQ+1];
+  // lse_s, delta_s [BQ]; all f32.
+  return sizeof(float) * (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) +
+                                  2 * BK * (BQ + 1) + 2 * BQ);
+}
+
+// dQ for one (b*h, 64-row Q tile).
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int QS = D + 1;   // padded row stride of the Q, dO, K, V tiles
+  constexpr int PS = BK + 1;  // padded row stride of ds_s
+  constexpr int TD = D / 16;  // output columns per thread
+
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + BQ * QS;
+  float* k_s = do_s + BQ * QS;
+  float* v_s = k_s + BK * QS;
+  float* ds_s = v_s + BK * QS;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int iq = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = iq * BQ;
+
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  const float* lsep = p.lse + (long long)bh * p.Lq;
+  const float* deltap = p.delta + (long long)bh * p.Lq;
+
+  // Q and dO tiles; rows past Lq load as 0 and are never stored.
+  for (int i = tid; i < BQ * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    const int row = q0 + r;
+    const bool ok = row < p.Lq;
+    q_s[r * QS + c] = ok ? to_f32(qp[row * p.q_sl + c]) : 0.f;
+    do_s[r * QS + c] = ok ? to_f32(dop[row * p.do_sl + c]) : 0.f;
+  }
+
+  float lse[TM], delta[TM], acc[TM][TD];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + ty * TM + i;
+    lse[i] = row < p.Lq ? lsep[row] : 0.f;
+    delta[i] = row < p.Lq ? deltap[row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
+  }
+
+  int nk = (p.Lk + BK - 1) / BK;
+  if (p.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * BK;
+    __syncthreads();  // the previous tile's readers are done with k_s/v_s/ds_s
+    for (int i = tid; i < BK * D; i += THREADS) {
+      const int r = i / D, c = i % D;
+      const int col = k0 + r;
+      const bool ok = col < p.Lk;
+      k_s[r * QS + c] = ok ? to_f32(kp[col * p.k_sl + c]) : 0.f;
+      v_s[r * QS + c] = ok ? to_f32(vp[col * p.v_sl + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for this thread's 4 x 4 scores.
+    float s[TM][TN], dp[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[TM], dov[TM], kv[TN], vv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        qv[i] = q_s[(ty * TM + i) * QS + d];
+        dov[i] = do_s[(ty * TM + i) * QS + d];
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        kv[j] = k_s[(tx + 16 * j) * QS + d];
+        vv[j] = v_s[(tx + 16 * j) * QS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        }
+    }
+
+    // P = exp(S - LSE) and dS = P (dP - Delta) scale under the mask.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = q0 + ty * TM + i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool ok = col < p.Lk && (!p.causal || row >= col);
+        const float pv = ok ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
+        ds_s[(ty * TM + i) * PS + tx + 16 * j] =
+            ok ? pv * (dp[i][j] - delta[i]) * p.scale : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float dsv[TM], kv[TD];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) dsv[i] = ds_s[(ty * TM + i) * PS + c];
+#pragma unroll
+      for (int j = 0; j < TD; ++j) kv[j] = k_s[c * QS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TD; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + ty * TM + i;
+    if (row >= p.Lq) continue;
+#pragma unroll
+    for (int j = 0; j < TD; ++j)
+      store(dqp + row * p.dq_sl + tx + 16 * j, acc[i][j]);
+  }
+}
+
+// dK and dV for one (b*h, 64-row K tile).
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int QS = D + 1;   // padded row stride of the K, V, Q, dO tiles
+  constexpr int PS = BQ + 1;  // padded row stride of p_s and ds_s
+  constexpr int TD = D / 16;  // output columns per thread
+
+  extern __shared__ float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + BK * QS;
+  float* q_s = v_s + BK * QS;
+  float* do_s = q_s + BQ * QS;
+  float* p_s = do_s + BQ * QS;   // P^T  [BK][BQ+1]
+  float* ds_s = p_s + BK * PS;   // dS^T [BK][BQ+1]
+  float* lse_s = ds_s + BK * PS;
+  float* delta_s = lse_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int ik = blockIdx.x;  // low K tiles see the most Q tiles: start first
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = ik * BK;
+
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  const float* lsep = p.lse + (long long)bh * p.Lq;
+  const float* deltap = p.delta + (long long)bh * p.Lq;
+
+  // K and V tiles; rows past Lk load as 0 and are never stored.
+  for (int i = tid; i < BK * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    const int col = k0 + r;
+    const bool ok = col < p.Lk;
+    k_s[r * QS + c] = ok ? to_f32(kp[col * p.k_sl + c]) : 0.f;
+    v_s[r * QS + c] = ok ? to_f32(vp[col * p.v_sl + c]) : 0.f;
+  }
+
+  float dk[TM][TD], dv[TM][TD];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TD; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  const int nq = (p.Lq + BQ - 1) / BQ;
+  // Causal: Q tile iq reaches this K tile iff k0 < (iq+1)*BQ.
+  const int iq0 = p.causal ? k0 / BQ : 0;
+
+  for (int iq = iq0; iq < nq; ++iq) {
+    const int q0 = iq * BQ;
+    __syncthreads();  // the previous tile's readers are done with the tiles
+    for (int i = tid; i < BQ * D; i += THREADS) {
+      const int r = i / D, c = i % D;
+      const int row = q0 + r;
+      const bool ok = row < p.Lq;
+      q_s[r * QS + c] = ok ? to_f32(qp[row * p.q_sl + c]) : 0.f;
+      do_s[r * QS + c] = ok ? to_f32(dop[row * p.do_sl + c]) : 0.f;
+    }
+    if (tid < BQ) {
+      const int row = q0 + tid;
+      lse_s[tid] = row < p.Lq ? lsep[row] : 0.f;
+      delta_s[tid] = row < p.Lq ? deltap[row] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T for this thread's 4 x 4 scores.
+    float st[TM][TN], dpt[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float kv[TM], vv[TM], qv[TN], dov[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        kv[i] = k_s[(ty * TM + i) * QS + d];
+        vv[i] = v_s[(ty * TM + i) * QS + d];
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        qv[j] = q_s[(tx + 16 * j) * QS + d];
+        dov[j] = do_s[(tx + 16 * j) * QS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
+          dpt[i][j] = fmaf(dov[j], vv[i], dpt[i][j]);
+        }
+    }
+
+    // P^T and dS^T under the mask; pad Q rows (row >= Lq) are masked too.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int col = k0 + ty * TM + i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int r = tx + 16 * j;
+        const int row = q0 + r;
+        const bool ok = col < p.Lk && row < p.Lq && (!p.causal || row >= col);
+        const float pv = ok ? expf(st[i][j] * p.scale - lse_s[r]) : 0.f;
+        p_s[(ty * TM + i) * PS + r] = pv;
+        ds_s[(ty * TM + i) * PS + r] =
+            ok ? pv * (dpt[i][j] - delta_s[r]) * p.scale : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q
+#pragma unroll 4
+    for (int c = 0; c < BQ; ++c) {
+      float pv[TM], dsv[TM], dov[TD], qv[TD];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        pv[i] = p_s[(ty * TM + i) * PS + c];
+        dsv[i] = ds_s[(ty * TM + i) * PS + c];
+      }
+#pragma unroll
+      for (int j = 0; j < TD; ++j) {
+        dov[j] = do_s[c * QS + tx + 16 * j];
+        qv[j] = q_s[c * QS + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TD; ++j) {
+          dv[i][j] = fmaf(pv[i], dov[j], dv[i][j]);
+          dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int col = k0 + ty * TM + i;
+    if (col >= p.Lk) continue;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) {
+      store(dkp + col * p.dk_sl + tx + 16 * j, dk[i][j]);
+      store(dvp + col * p.dv_sl + tx + 16 * j, dv[i][j]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + BQ - 1) / BQ, B * p.H);
+  dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lk + BK - 1) / BK, B * p.H);
+  dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// which: 0 = dq_kernel, 1 = dkv_kernel.
+template <typename T, int D>
+cudaError_t launch(const Params& p, int B, int which, cudaStream_t stream) {
+  return which == 0 ? launch_dq<T, D>(p, B, stream)
+                    : launch_dkv<T, D>(p, B, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_d(const Params& p, int B, int D, int which,
+                       cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<T, 16>(p, B, which, stream);
+    case 32: return launch<T, 32>(p, B, which, stream);
+    case 64: return launch<T, 64>(p, B, which, stream);
+    case 128: return launch<T, 128>(p, B, which, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(const Params& p, int device, int B, int D, int dtype, int which,
+        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch_d<float>(p, B, D, which, s);
+    case 1: return dispatch_d<__nv_bfloat16>(p, B, D, which, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Params common(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, int H, int Lq, int Lk,
+              int causal, float scale, long long q_sb, long long q_sl,
+              long long q_sh, long long k_sb, long long k_sl, long long k_sh,
+              long long v_sb, long long v_sl, long long v_sh,
+              long long do_sb, long long do_sl, long long do_sh) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.causal = causal;
+  p.scale = scale;
+  p.q_sb = q_sb; p.q_sl = q_sl; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_sl = k_sl; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_sl = v_sl; p.v_sh = v_sh;
+  p.do_sb = do_sb; p.do_sl = do_sl; p.do_sh = do_sh;
+  return p;
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// Each returns a cudaError_t; 0 means the kernel was launched.
+
+// dQ [B, Lq, H, D] in q's dtype.
+extern "C" int ray_tpu_torch_flash_attention_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq,
+    int device, int B, int H, int Lq, int Lk, int D, int dtype, int causal,
+    float scale,
+    long long q_sb, long long q_sl, long long q_sh,
+    long long k_sb, long long k_sl, long long k_sh,
+    long long v_sb, long long v_sl, long long v_sh,
+    long long do_sb, long long do_sl, long long do_sh,
+    long long dq_sb, long long dq_sl, long long dq_sh,
+    void* stream) {
+  Params p = common(q, k, v, dout, lse, delta, H, Lq, Lk, causal, scale,
+                    q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                    do_sb, do_sl, do_sh);
+  p.dq = dq;
+  p.dq_sb = dq_sb; p.dq_sl = dq_sl; p.dq_sh = dq_sh;
+  return run(p, device, B, D, dtype, 0, stream);
+}
+
+// dK and dV [B, Lk, H, D] in k's (= v's) dtype.
+extern "C" int ray_tpu_torch_flash_attention_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    int device, int B, int H, int Lq, int Lk, int D, int dtype, int causal,
+    float scale,
+    long long q_sb, long long q_sl, long long q_sh,
+    long long k_sb, long long k_sl, long long k_sh,
+    long long v_sb, long long v_sl, long long v_sh,
+    long long do_sb, long long do_sl, long long do_sh,
+    long long dk_sb, long long dk_sl, long long dk_sh,
+    long long dv_sb, long long dv_sl, long long dv_sh,
+    void* stream) {
+  Params p = common(q, k, v, dout, lse, delta, H, Lq, Lk, causal, scale,
+                    q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                    do_sb, do_sl, do_sh);
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_sb = dk_sb; p.dk_sl = dk_sl; p.dk_sh = dk_sh;
+  p.dv_sb = dv_sb; p.dv_sl = dv_sl; p.dv_sh = dv_sh;
+  return run(p, device, B, D, dtype, 1, stream);
+}

@@ -1,19 +1,26 @@
-"""Flash attention forward: a CUDA kernel for Hopper and its plain version.
+"""Flash attention: CUDA kernels for Hopper, forward and backward, and their
+plain versions.
 
-Port of ``ray_tpu/ops/flash_attention.py``. The Pallas TPU kernel
-``_fwd_kernel`` becomes the hand-written CUDA C++ kernel in
-``csrc/flash_attention_fwd.cu`` (its header says what bounds it on an H100
-and how it is laid out); ``flash_attention_reference`` is the same function
-in dense PyTorch.
+Port of ``ray_tpu/ops/flash_attention.py``. Each Pallas TPU kernel becomes a
+hand-written CUDA C++ kernel (each source's header says what bounds it on an
+H100 and how it is laid out):
+- ``_fwd_kernel`` -> ``csrc/flash_attention_fwd.cu``; plain version
+  ``flash_attention_reference``;
+- ``_dq_kernel`` and ``_dkv_kernel`` -> ``csrc/flash_attention_bwd.cu``;
+  plain version ``flash_attention_bwd_reference``.
+
+``_FlashAttention`` is the ``torch.autograd.Function`` that the JAX
+package's ``jax.custom_vjp`` becomes: its forward saves (q, k, v, O, LSE),
+its backward returns (dq, dk, dv). Delta = rowsum(dO * O) is a torch op
+outside the kernels, as JAX computes it outside Pallas.
 
 Routing is by the device of the inputs and nothing else:
-- a CUDA tensor launches the kernel, or raises (unsupported dtype, head
-  dim, layout, or a gradient asked for before the backward kernels exist);
-- only a CPU tensor takes the plain version.
+- a CUDA tensor launches the kernels, or raises (unsupported dtype, head
+  dim or layout);
+- only a CPU tensor takes the plain versions, through the same Function.
 
-``launches`` counts kernel launches, so a run can show that its attention
-went through the kernel. Forward only: the backward kernels (``_dq_kernel``,
-``_dkv_kernel``) come with the training slice.
+``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches,
+so a run can show that its attention went through the kernels.
 """
 
 from __future__ import annotations
@@ -30,23 +37,49 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 # Kernel launches since the process started (or since a caller reset it).
-launches = 0
+launches = 0        # forward kernel
+dq_launches = 0     # dq kernel
+dkv_launches = 0    # dkv kernel
 _count_lock = threading.Lock()
-_entry = None  # the bound C entry point, set at first launch
+
+# C entry point -> (kernel source in csrc/, tensor pointers, int64 strides).
+# Every entry point takes, after its pointers: device, B, H, Lq, Lk, D,
+# dtype, causal (ints), scale (float); then three strides per tensor and
+# the stream.
+_ENTRY_POINTS = {
+    "ray_tpu_torch_flash_attention_fwd": ("flash_attention_fwd", 5, 12),
+    "ray_tpu_torch_flash_attention_dq": ("flash_attention_bwd", 7, 15),
+    "ray_tpu_torch_flash_attention_dkv": ("flash_attention_bwd", 8, 18),
+}
+_entries = {}  # bound C entry points, set at first launch
 
 
-def _kernel_entry():
-    global _entry
-    if _entry is None:
+def _kernel_entry(symbol: str):
+    fn = _entries.get(symbol)
+    if fn is None:
         from ray_tpu_torch.ops import _build
-        lib = _build.load("flash_attention_fwd")
-        fn = lib.ray_tpu_torch_flash_attention_fwd
+        source, n_ptr, n_strides = _ENTRY_POINTS[symbol]
+        fn = getattr(_build.load(source), symbol)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([p] * 5 + [i] * 8 + [ctypes.c_float] + [i64] * 12
-                       + [p])
+        fn.argtypes = ([p] * n_ptr + [i] * 8 + [ctypes.c_float]
+                       + [i64] * n_strides + [p])
         fn.restype = ctypes.c_int
-        _entry = fn
-    return _entry
+        _entries[symbol] = fn
+    return fn
+
+
+def _run_kernel(symbol: str, tensors, q: torch.Tensor, k: torch.Tensor,
+                causal: bool, scale: float) -> None:
+    """Launch ``symbol`` on q's stream; ``tensors`` are its pointer
+    arguments in order, the [B, L, H, D] ones passing their strides too."""
+    B, Lq, H, D = q.shape
+    strides = [st for t in tensors if t.dim() == 4 for st in t.stride()[:3]]
+    err = _kernel_entry(symbol)(
+        *(t.data_ptr() for t in tensors), q.device.index, B, H, Lq,
+        k.shape[1], D, KERNEL_DTYPES[q.dtype], int(causal), float(scale),
+        *strides, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -83,12 +116,6 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                              f"strides {t.stride()}")
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError("batch * heads must be at most 65535 (grid limit)")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash-attention backward on CUDA needs the _dq/_dkv kernels, "
-            "which come with the training slice; run under "
-            "torch.inference_mode() or torch.no_grad()")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -96,25 +123,54 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     global launches
     _check_kernel_inputs(q, k, v)
     B, Lq, H, D = q.shape
-    Lk = k.shape[1]
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    entry = _kernel_entry()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), q.device.index, B, H, Lq, Lk, D,
-                KERNEL_DTYPES[q.dtype], int(causal), float(scale),
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                out.stride(0), out.stride(1), out.stride(2),
-                stream)
-    if err != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
-                           f"error {err}")
+    _run_kernel("ray_tpu_torch_flash_attention_fwd", (q, k, v, out, lse),
+                q, k, causal, scale)
     with _count_lock:
         launches += 1
     return out, lse
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool,
+               scale: float) -> torch.Tensor:
+    """dq kernel: dQ [B, Lq, H, D] in q's dtype. Inputs as ``_launch_bwd``
+    hands them over (checked, dO contiguous in D, LSE and Delta f32
+    contiguous [B, H, Lq])."""
+    global dq_launches
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _run_kernel("ray_tpu_torch_flash_attention_dq",
+                (q, k, v, do, lse, delta, dq), q, k, causal, scale)
+    with _count_lock:
+        dq_launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool,
+                scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dkv kernel: dK and dV [B, Lk, H, D] in k's dtype. Inputs as for
+    ``_launch_dq``."""
+    global dkv_launches
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _run_kernel("ray_tpu_torch_flash_attention_dkv",
+                (q, k, v, do, lse, delta, dk, dv), q, k, causal, scale)
+    with _count_lock:
+        dkv_launches += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, out, lse, do, causal: bool, scale: float):
+    _check_kernel_inputs(q, k, v)
+    if do.stride(-1) != 1:
+        # The gradient autograd hands back may be strided in D (e.g. after
+        # a transpose downstream); the kernels read D contiguously.
+        do = do.contiguous()
+    delta = attention_delta(out, do)
+    lse = lse.contiguous()
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -147,6 +203,53 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype), lse
 
 
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Delta = rowsum(dO * O) in float32, as ``[B, H, Lq]`` contiguous.
+
+    O is the forward's output in its own dtype (bf16 O is rounded before
+    Delta is formed, as in the JAX package, which saves O in bf16)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = True,
+                                  scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Dense PyTorch version of the two backward kernels: ``(dq, dk, dv)``.
+
+    Follows their formulas, not autograd: P = exp(S - LSE) under the same
+    top-left causal mask, Delta = ``attention_delta(out, do)``,
+    dS = P * (dP - Delta) * scale with dP = dO V^T, then dQ = dS K,
+    dK = dS^T Q, dV = P^T dO. Computes in float32; each gradient comes back
+    in its input's dtype.
+    """
+    D = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    Lq, Lk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - attention_delta(out, do)[..., None]) * scale
+    if causal:
+        mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device).tril()
+        p = torch.where(mask, p, 0.0)
+        ds = torch.where(mask, ds, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_device(q: torch.Tensor) -> None:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -155,12 +258,62 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors go to the kernel; CPU tensors to the plain version.
     """
     _check_shapes(q, k, v)
+    _check_device(q)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale)
-    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    return flash_attention_reference(q, k, v, causal, scale)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's residuals and dO = dL/dO.
+
+    ``out`` and ``lse`` are what ``flash_attention_fwd`` returned. CUDA
+    tensors go to the dq and dkv kernels; CPU tensors to the plain version.
+    """
+    _check_shapes(q, k, v)
+    _check_device(q)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    B, Lq, H, _ = q.shape
+    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(B, H, Lq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if out.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"out and dO must be {q.dtype}, got {out.dtype} "
+                         f"and {do.dtype}")
+    if not (q.device == out.device == lse.device == do.device):
+        raise ValueError("q, out, lse and dO on different devices")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse, do, causal, scale)
+    return flash_attention_bwd_reference(q, k, v, out, lse, do, causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX package's ``jax.custom_vjp`` around
+    ``_flash_attention_bhld``: the forward saves (q, k, v, O, LSE) as
+    ``_fwd_rule`` does; the backward returns (dq, dk, dv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,8 +321,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Flash attention. q/k/v: [batch, seqlen, heads, head_dim].
 
-    Returns [batch, seqlen, heads, head_dim]. ``block_q``/``block_k`` keep
-    the JAX signature; they are tiling hints that change no result, and the
-    CUDA kernel's 64 x 64 tiles are fixed by its thread layout.
+    Returns [batch, seqlen, heads, head_dim]. Differentiable: when a
+    gradient is wanted the call goes through ``_FlashAttention``; otherwise
+    (``torch.inference_mode()``, ``torch.no_grad()``, or no input that
+    requires grad) it runs the forward alone and saves nothing.
+    ``block_q``/``block_k`` keep the JAX signature; they are tiling hints
+    that change no result, and the CUDA kernels' 64 x 64 tiles are fixed by
+    their thread layout.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention_fwd(q, k, v, causal, scale)[0]

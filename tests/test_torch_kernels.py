@@ -18,7 +18,7 @@ fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
 def _cuda_or_skip():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the flash-attention kernel has no "
+        pytest.skip("needs a CUDA card: the flash-attention kernels have no "
                     "CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
@@ -65,9 +65,91 @@ def test_flash_fwd_kernel_takes_strided_views():
     torch.testing.assert_close(lse, ref_lse, rtol=2e-5, atol=2e-5)
 
 
+def _do(seed, q):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal(tuple(q.shape), dtype=np.float32),
+                        device=q.device).to(q.dtype)
+
+
+def _assert_grads_close(got, want, dtype):
+    """f32 at 2e-4, the reference's grad tolerance. bf16 at 1e-2 of the
+    largest |grad|: kernel and plain version compute in f32 from the same
+    bf16 inputs and round once to bf16, so they differ by about one bf16
+    step (2^-7 relative) of the largest value, plus f32 summation order."""
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        if dtype == torch.float32:
+            tol = dict(rtol=2e-4, atol=2e-4)
+        else:
+            tol = dict(rtol=1e-2, atol=1e-2 * w.float().abs().max().item())
+        torch.testing.assert_close(g.float(), w.float(), **tol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
 @pytest.mark.cuda
-def test_flash_fwd_kernel_refuses_grad():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_match_plain(causal, D, dtype):
+    """dq and dkv kernels against the plain backward, ragged Lq < Lk: under
+    the causal mask K rows >= Lq see no query, and their dK and dV must be
+    written as exact zeros."""
     device = _cuda_or_skip()
-    q, k, v = _qkv(2, 1, 64, 64, 1, 64, torch.float32, device)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q.requires_grad_(), k, v)
+    q, k, v = _qkv(3, 2, 200, 333, 2, D, dtype, device)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    do = _do(4, q)
+    before = (fa.dq_launches, fa.dkv_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    _assert_grads_close(got, want, dtype)
+    if causal:
+        assert not got[1][:, 200:].any() and not got[2][:, 200:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk", [(384, 128), (1024, 1024)])
+def test_flash_bwd_kernels_other_lengths(Lq, Lk):
+    device = _cuda_or_skip()
+    q, k, v = _qkv(5, 1, Lq, Lk, 2, 64, torch.float32, device)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    do = _do(6, q)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    _assert_grads_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_takes_do_strided_in_d():
+    """A dO that is not contiguous in D is made contiguous, explicitly."""
+    device = _cuda_or_skip()
+    q, k, v = _qkv(7, 1, 96, 96, 2, 32, torch.float32, device)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    do = _do(8, q.transpose(-1, -2).contiguous()).transpose(-1, -2)
+    assert do.stride(-1) != 1
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse,
+                                            do.contiguous(), True)
+    _assert_grads_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_gradient_runs_through_the_kernels():
+    """A CUDA gradient goes through ``_FlashAttention``: one forward launch,
+    then one dq and one dkv launch in the backward, with autograd's grads of
+    the plain forward as the answer."""
+    device = _cuda_or_skip()
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(2, 1, 64, 64, 1, 64, torch.float32, device))
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out = fa.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    do = _do(9, q)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    ref, _ = fa.flash_attention_reference(q, k, v)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    _assert_grads_close(got, want, torch.float32)

@@ -2,8 +2,10 @@
 
 The JAX parameters are made by ``ray_tpu.models.transformer.init_params``
 and carried across with ``params_from_numpy``; tokens come from seeded
-numpy. On the CPU the port's attention runs its plain version and the JAX
-flash path runs the Pallas kernel in interpret mode.
+numpy. On the CPU the port's attention runs its plain versions (forward,
+and backward through ``_FlashAttention``) and the JAX flash path runs the
+Pallas kernels in interpret mode. Logits compare at 2e-4, as do the loss
+and its gradients.
 """
 
 import dataclasses
@@ -53,6 +55,76 @@ def test_logits_match_jax(use_flash, n_kv_heads):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
+
+
+def _flat(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, in sorted key order."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _flat(tree[key], f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", tree[key]
+
+
+def _port_loss_and_grads(params, tokens, cfg):
+    leaves = [t.requires_grad_() for _, t in _flat(params)]
+    loss = transformer.loss_fn(params, tokens, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss, dict(zip((path for path, _ in _flat(params)), grads))
+
+
+@pytest.mark.parametrize("use_flash,n_kv_heads", [(False, None), (True, None),
+                                                  (True, 2)],
+                         ids=["dense", "flash", "flash-gqa"])
+def test_loss_and_grads_match_jax(use_flash, n_kv_heads):
+    """``loss_fn`` and its gradient against ``jax.value_and_grad`` of the
+    JAX ``loss_fn`` (remat on in both), f32."""
+    jcfg, cfg = _configs(use_flash=use_flash, n_kv_heads=n_kv_heads)
+    np_params = _jax_params_numpy(jcfg)
+    tokens = _tokens(5, (2, 33))
+    want_loss, want = jax.value_and_grad(jax_transformer.loss_fn)(
+        jax.tree.map(jnp.asarray, np_params), jnp.asarray(tokens), jcfg)
+    params = transformer.params_from_numpy(np_params, cfg, "cpu")
+    loss, got = _port_loss_and_grads(params, torch.tensor(tokens), cfg)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=2e-4,
+                               atol=2e-4)
+    want = dict(_flat(want))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[path]),
+                                   rtol=2e-4, atol=2e-4, err_msg=path)
+
+
+def test_remat_gives_the_same_gradients():
+    """Per-block checkpointing recomputes the blocks in the backward; the
+    loss and every gradient stay the same."""
+    _, cfg = _configs(use_flash=True, n_kv_heads=2)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(6),
+                                     "cpu")
+    tokens = torch.tensor(_tokens(7, (2, 25)))
+    runs = [_port_loss_and_grads(
+        {**params}, tokens, dataclasses.replace(cfg, remat=remat))
+        for remat in (True, False)]
+    (loss_r, grads_r), (loss_n, grads_n) = runs
+    torch.testing.assert_close(loss_r, loss_n, rtol=1e-6, atol=1e-6)
+    for path in grads_r:
+        torch.testing.assert_close(grads_r[path], grads_n[path], rtol=1e-6,
+                                   atol=1e-6, msg=path)
+
+
+def test_loss_fn_under_no_grad_runs_without_remat():
+    _, cfg = _configs()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(8),
+                                     "cpu")
+    tokens = torch.tensor(_tokens(9, (2, 17)))
+    with torch.no_grad():
+        loss = transformer.loss_fn(params, tokens, cfg)
+    logits = transformer.apply(params, tokens[:, :-1], cfg)
+    nll = -torch.log_softmax(logits, -1).gather(
+        -1, tokens[:, 1:, None].long())[..., 0]
+    torch.testing.assert_close(loss, nll.mean())
+    assert loss.grad_fn is None
 
 
 def test_transformer_causality():
@@ -124,7 +196,7 @@ def test_entry_config_matches_jax_entry():
     cfg = port_entry.CONFIG
     assert (cfg.vocab_size, cfg.d_model, cfg.n_layers, cfg.n_heads,
             cfg.max_seq_len) == (32000, 512, 8, 8, 1024)
-    assert cfg.dtype == torch.bfloat16 and cfg.use_flash
+    assert cfg.dtype == torch.bfloat16 and cfg.use_flash and cfg.remat
 
 
 def test_entry_raises_without_cuda(monkeypatch):

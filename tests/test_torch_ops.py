@@ -1,23 +1,27 @@
 """Port's flash attention against the JAX package's Pallas kernel.
 
-On the CPU the port's wrapper runs its plain PyTorch version and the JAX
-kernel runs in interpret mode, as ``tests/test_ops.py`` runs it; the same
+On the CPU the port's wrapper runs its plain PyTorch versions and the JAX
+kernels run in interpret mode, as ``tests/test_ops.py`` runs them; the same
 numpy inputs go through both. The cases mirror ``tests/test_ops.py`` at its
-tolerances (2e-5, and 2e-2 for bf16). The CUDA kernel itself is held
-against the plain version in ``tests/test_torch_kernels.py``.
+tolerances (2e-5 forward, 2e-4 gradients, 2e-2 for bf16). Gradients go
+through the port's ``_FlashAttention`` against the JAX custom VJP. The CUDA
+kernels themselves are held against the plain versions in
+``tests/test_torch_kernels.py``.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from ray_tpu.ops import flash_attention as jax_flash_attention
-from ray_tpu.ops.flash_attention import _flash_fwd
-from ray_tpu_torch.ops import (flash_attention, flash_attention_fwd,
-                               flash_attention_reference)
+from ray_tpu.ops.flash_attention import _flash_bwd, _flash_fwd
+from ray_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                               flash_attention_bwd_reference,
+                               flash_attention_fwd, flash_attention_reference)
 
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
@@ -143,7 +147,139 @@ def test_kernel_input_checks():
     strided = torch.zeros(1, 16, 2, 128)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         fa._check_kernel_inputs(strided, k, v)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa._check_kernel_inputs(q.requires_grad_(), k, v)
+    # Inputs that need a gradient are taken: the backward kernels exist.
+    fa._check_kernel_inputs(q.requires_grad_(), k, v)
+
+
+def _port_grads(q, k, v, causal):
+    """Grads of sum(out**2) through the port's Function."""
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = flash_attention(*ts, causal=causal)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    return [g.numpy() for g in torch.autograd.grad(out.square().sum(), ts)]
+
+
+def _jax_grads(q, k, v, causal):
+    def loss(q, k, v):
+        return jnp.sum(jax_flash_attention(q, k, v, causal=causal,
+                                           block_q=128, block_k=128) ** 2)
+    return jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_grad(causal):
+    """Mirrors ``tests/test_ops.py:44-63`` against the JAX custom VJP."""
+    q, k, v = _qkv(10, 1, 256, 2, 32)
+    for got, want, name in zip(_port_grads(q, k, v, causal),
+                               _jax_grads(q, k, v, causal), "qkv"):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4,
+                                   atol=2e-4, err_msg=f"grad of {name}")
+
+
+def test_flash_attention_ragged_grad():
+    """Mirrors ``tests/test_ops.py:92-102`` (L 200, not a block multiple);
+    all three gradients, where the JAX test checks dq."""
+    q, k, v = _qkv(11, 1, 200, 1, 32)
+    for got, want, name in zip(_port_grads(q, k, v, False),
+                               _jax_grads(q, k, v, False), "qkv"):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4,
+                                   atol=2e-4, err_msg=f"grad of {name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 200, 200, 2, 32), (1, 128, 256, 1, 16),
+                                   (1, 256, 128, 2, 16)])
+def test_flash_bwd_reference_matches_pallas(shape, causal):
+    """The plain backward against ``_flash_bwd`` (both Pallas kernels, in
+    interpret mode) on the same residuals, Lq != Lk included. With causal
+    and Lk > Lq, K rows >= Lq see no query: dK and dV there are 0."""
+    B, Lq, Lk, H, D = shape
+    q, k, v = _qkv(12, B, Lq, H, D, Lk)
+    do = np.random.default_rng(13).standard_normal((B, Lq, H, D),
+                                                   dtype=np.float32)
+    scale = 1.0 / np.sqrt(D)
+
+    def bhld(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(
+            B * H, x.shape[1], D)
+
+    def blhd(x):
+        x = np.asarray(x)
+        return x.reshape(B, H, x.shape[1], D).transpose(0, 2, 1, 3)
+
+    out, lse = _flash_fwd(bhld(q), bhld(k), bhld(v), scale, causal, 128, 128,
+                          True)
+    want = _flash_bwd(scale, causal, 128, 128, True,
+                      (bhld(q), bhld(k), bhld(v), out, lse), bhld(do))
+    got = flash_attention_bwd(
+        *(torch.tensor(x) for x in (q, k, v, blhd(out))),
+        torch.tensor(np.asarray(lse)).reshape(B, H, Lq), torch.tensor(do),
+        causal)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), blhd(w), rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name}")
+    if causal and Lk > Lq:
+        assert not got[1][:, Lq:].any() and not got[2][:, Lq:].any()
+
+
+def test_cpu_grad_goes_through_the_function_without_launches():
+    """On CPU tensors the Function runs the plain forward and backward; no
+    kernel counter moves."""
+    q, k, v = (torch.tensor(x, requires_grad=True)
+               for x in _qkv(14, 1, 96, 2, 16))
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out = flash_attention(q, k, v, causal=True, scale=0.3)
+    do = torch.tensor(np.random.default_rng(15).standard_normal(
+        out.shape, dtype=np.float32))
+    got = torch.autograd.grad(out, (q, k, v), do)
+    ref_out, lse = flash_attention_reference(q.detach(), k.detach(),
+                                             v.detach(), True, 0.3)
+    want = flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                         ref_out, lse, do, True, 0.3)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
+
+
+def test_plain_backward_matches_autograd_of_plain_forward():
+    """The plain backward's formulas against autograd of the plain forward,
+    bf16 O rounding aside (f32 here)."""
+    q, k, v = (torch.tensor(x, requires_grad=True)
+               for x in _qkv(16, 2, 80, 2, 16, 112))
+    do = torch.tensor(np.random.default_rng(17).standard_normal(
+        (2, 80, 2, 16), dtype=np.float32))
+    for causal in (True, False):
+        out, lse = flash_attention_reference(q, k, v, causal)
+        want = torch.autograd.grad(out, (q, k, v), do)
+        got = flash_attention_bwd_reference(
+            q.detach(), k.detach(), v.detach(), out.detach(), lse.detach(),
+            do, causal)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_no_grad_and_inference_mode_save_nothing():
+    """The serving path: without a recorded gradient the call runs the
+    forward alone; nothing is saved for a backward."""
+    q, k, v = (torch.tensor(x, requires_grad=True)
+               for x in _qkv(18, 1, 32, 2, 16))
+    with torch.inference_mode():
+        assert flash_attention(q, k, v).grad_fn is None
     with torch.no_grad():
-        fa._check_kernel_inputs(q, k, v)
+        assert flash_attention(q, k, v).grad_fn is None
+    assert flash_attention(q.detach(), k.detach(), v.detach()).grad_fn is None
+
+
+def test_bwd_rejects_bad_residuals():
+    q, k, v = (torch.tensor(x) for x in _qkv(19, 1, 16, 2, 16))
+    out, lse = flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, lse[:, :1], out)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_bwd(q, k, v, out[:, :8], lse, out)
+    with pytest.raises(ValueError, match="must be"):
+        flash_attention_bwd(q, k, v, out, lse, out.double())
+    meta = [t.to("meta") for t in (q, k, v, out, lse, out)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_bwd(*meta)

@@ -1,0 +1,133 @@
+"""Port's training step against the JAX package's, from the same weights.
+
+The JAX ``make_lm_train_step`` runs on a one-device CPU mesh; its initial
+parameters are carried across with ``params_from_numpy`` and the port's
+``init_fn(params=...)``. Both then take 3 steps on the same seeded token
+batch (f32, TINY config, default AdamW); loss and grad norm agree step by
+step at rtol 1e-4. The JAX flash path runs its Pallas kernels in interpret
+mode, the port its plain versions through ``_FlashAttention``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ray_tpu.models import transformer as jax_transformer
+from ray_tpu.parallel import MeshConfig, build_mesh
+from ray_tpu.train.step import make_lm_train_step as jax_make_lm_train_step
+from ray_tpu_torch.models import transformer
+from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.train import adamw, make_lm_train_step
+
+TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+            max_seq_len=128)
+STEPS = 3
+
+
+def _batches(seed=0, shape=(2, 33)):
+    """One seeded batch, taken at every step, so the loss must fall."""
+    tokens = np.random.default_rng(seed).integers(
+        0, TINY["vocab_size"], size=shape, dtype=np.int32)
+    return [tokens] * STEPS
+
+
+@pytest.fixture(scope="module", params=["dense", "flash"])
+def trajectories(request):
+    """(jax, port) lists of (loss, grad_norm), one run per module."""
+    use_flash = request.param == "flash"
+    jcfg = jax_transformer.TransformerConfig(**TINY, dtype=jnp.float32,
+                                             use_flash=use_flash)
+    mesh = build_mesh(MeshConfig(data=1), jax.devices()[:1])
+    init_fn, step_fn, shard_batch = jax_make_lm_train_step(jcfg, mesh)
+    state = init_fn(jax.random.PRNGKey(0))
+    # A copy: the JAX step donates its state buffers.
+    np_params = jax.tree.map(lambda a: np.array(a, copy=True), state[0])
+    want = []
+    for tokens in _batches():
+        state, m = step_fn(state, shard_batch(jnp.asarray(tokens)))
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+
+    cfg = TransformerConfig(**TINY, dtype=torch.float32, use_flash=use_flash)
+    init, step, shard = make_lm_train_step(cfg, device="cpu")
+    state = init(params=transformer.params_from_numpy(np_params, cfg, "cpu"))
+    got = []
+    for tokens in _batches():
+        state, m = step(state, shard(tokens))
+        got.append((m["loss"].item(), m["grad_norm"].item()))
+    return want, got
+
+
+def test_train_step_matches_jax(trajectories):
+    want, got = trajectories
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-4)
+    assert got[-1][0] < got[0][0]  # the loss goes down
+
+
+def test_default_optimizer_follows_optax_adamw():
+    """``adamw()`` against ``optax.adamw(3e-4, weight_decay=0.01)``, the JAX
+    step's default, over 3 updates of one leaf."""
+    rng = np.random.default_rng(1)
+    w0 = rng.standard_normal((4, 8), dtype=np.float32)
+    grads = [rng.standard_normal((4, 8), dtype=np.float32)
+             for _ in range(STEPS)]
+    tx = optax.adamw(3e-4, weight_decay=0.01)
+    w = jnp.asarray(w0)
+    opt_state = tx.init(w)
+    for g in grads:
+        updates, opt_state = tx.update(jnp.asarray(g), opt_state, w)
+        w = optax.apply_updates(w, updates)
+    t = torch.tensor(w0, requires_grad=True)
+    opt = adamw()([t])
+    for g in grads:
+        t.grad = torch.tensor(g)
+        opt.step()
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(w), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_mesh_and_pipeline_arguments_raise():
+    cfg = TransformerConfig(**TINY, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="parallel"):
+        make_lm_train_step(cfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel"):
+        make_lm_train_step(cfg, rules=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="microbatches"):
+        make_lm_train_step(cfg, num_microbatches=4, device="cpu")
+
+
+def test_init_fn_and_state():
+    """A generator or weights, not both; given weights are copied (the step
+    updates its state in place) and must match the config."""
+    cfg = TransformerConfig(**TINY, dtype=torch.float32, use_flash=True)
+    init, step, shard = make_lm_train_step(cfg, device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        init()
+    params, opt = init(torch.Generator().manual_seed(0))
+    assert isinstance(opt, torch.optim.AdamW)
+    assert all(t.requires_grad and t.dtype == torch.float32
+               for t in transformer.leaves(params))
+    attn = params["blocks"]["attn"]
+    before = {k: v.detach().clone() for k, v in attn.items()}
+    state = init(params=params)
+    assert state[0]["embed"] is not params["embed"]
+    tokens = shard(_batches(2)[0])
+    assert tokens.device == torch.device("cpu")
+    (new_params, new_opt), metrics = step(state, tokens)
+    assert new_params is state[0] and new_opt is state[1]  # in place
+    assert metrics["loss"].shape == () and metrics["grad_norm"] > 0
+    for k, v in attn.items():  # the source is untouched
+        assert torch.equal(v.detach(), before[k])
+    assert not torch.equal(new_params["blocks"]["attn"]["wq"].detach(),
+                           before["wq"])
+    other = TransformerConfig(**{**TINY, "n_layers": 3}, dtype=torch.float32)
+    with pytest.raises(ValueError, match="do not match"):
+        make_lm_train_step(other, device="cpu")[0](params=params)
+
+
+def test_step_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_lm_train_step(TransformerConfig(**TINY))
