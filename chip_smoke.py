@@ -8,10 +8,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases, each of which asserts:
 1. device: a CUDA card is present; print its name and power limit;
-2. build: compile every CUDA kernel of the path from ``ray_tpu_torch/ops/csrc``;
-3. kernels: hold the flash-attention forward kernel against its plain
-   PyTorch version (O and LSE) over head dims 16/32/64/128, f32 and bf16,
-   causal and full, L = 256, 1024 and a ragged 200, and Lq != Lk;
+2. build: compile every CUDA kernel of the path from ``ray_tpu_torch/ops/csrc``
+   and print ptxas's registers and spills for each instantiation;
+3. kernels: hold the flash-attention forward kernels (f32: FMA; bf16:
+   tensor cores) against their plain PyTorch version (O and LSE) over head
+   dims 16/32/64/128, f32 and bf16, causal and full, L = 256, 1024 and a
+   ragged 200, and Lq != Lk;
 4. entry: run ``ray_tpu_torch.entry``'s flagship forward once;
 5. serve: answer 16 requests of 1..1024 tokens through ``@serve.batch`` and
    a ``TorchPredictor`` at the width of ``bench.py``'s transformer (d_model
@@ -22,9 +24,10 @@ Phases, each of which asserts:
 6. times: the kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` at the serving shape, beside the
    kernel's bound, and the bf16 serving rate;
-7. backward kernels: dQ, dK and dV of the dq and dkv kernels against the
-   plain backward over the cases of phase 3, and the same cases through the
-   autograd Function against autograd of the plain forward;
+7. backward kernels: dQ, dK and dV of the dq and dkv kernels (dkv on the
+   tensor cores for bf16) against the plain backward over the cases of
+   phase 3, and the same cases through the autograd Function against
+   autograd of the plain forward;
 8. training parity: 3 f32 steps of ``make_lm_train_step`` at the width of
    phase 5 cut to 2 layers, batch 2 x 513 tokens, through the kernels and
    through dense attention from the same weights; loss and grad norm agree
@@ -38,6 +41,10 @@ Phases, each of which asserts:
    SDPA backward at the training shape, beside each kernel's bound, and the
    attention kernels' share of a training step.
 
+Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
+calls back to back between two CUDA events and divides, so a kernel is not
+charged its wrapper's host path.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside it, the script exits non-zero and prints no
@@ -49,6 +56,7 @@ from __future__ import annotations
 import functools
 import importlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -99,34 +107,59 @@ def card_line() -> str:
     return out[0]
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel symbol: the identifier,
+    prefixed by its length, that ends in ``_kernel``, and the template
+    arguments after it (a length prefix may follow other digits)."""
+    for run in re.finditer(r"\d+", mangled):
+        digits = run.group()
+        for i in range(len(digits)):
+            name = mangled[run.end():run.end() + int(digits[i:])]
+            if name.endswith("_kernel") and name[:1].isalpha():
+                args = mangled[run.end() + len(name):].split("EEv")[0]
+                return name + args.replace("I", "<", 1) + ">"
+    return mangled
+
+
 def ptxas_summary(build_log: str):
     """One line per compiled kernel: its registers and spills."""
     name, spills = None, ""
     for line in build_log.splitlines():
-        m = re.search(r"Function properties for .*?\d+([a-z_]+_kernel\w*)",
-                      line)
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = m.group(1)
+            name = _kernel_name(m.group(1))
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line and name:
             yield f"{name}: {line.split(':', 1)[1].strip()}; {spills}"
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, in ms."""
+def time_ms(fn, windows: int = 10, window_ms: float = 5.0,
+            warmup: int = 3) -> float:
+    """Device time of one ``fn()`` call, in ms: after the warm-up, each of
+    ``windows`` windows enqueues n calls back to back between one pair of
+    CUDA events (n chosen so that a window lasts at least ``window_ms``),
+    and the result is the median over windows of elapsed / n. Back to back,
+    the host's work for call i + 1 overlaps the device's work for call i,
+    so a kernel is not charged its wrapper's host path."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    n = max(1, math.ceil(window_ms / max(start.elapsed_time(end), 1e-3)))
+    per_call = []
+    for _ in range(windows):
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        per_call.append(start.elapsed_time(end) / n)
+    return statistics.median(per_call)
 
 
 def _bound(nbytes, flops, dtype):
@@ -339,7 +372,7 @@ def serve_phase(fa, device, width=SERVE_WIDTH, n_requests=N_REQUESTS):
              "last": torch.full((B,), L - 1, device=device)}
     with torch.inference_mode():
         forward_ms = time_ms(lambda: last_token_logits(cfg16, params16, batch),
-                             reps=5, warmup=1)
+                             windows=5, warmup=1)
     return dict(launches=launches, batches=dep.batches,
                 seconds=statistics.median(t for _, t in runs),
                 n_tokens=n_tokens, forward_ms=forward_ms,
@@ -531,7 +564,7 @@ def backward_times(fa, device, B, L, H, D, dt):
     res["dkv_ms"] = time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta,
                                                    True, scale))
     res["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, True), reps=5)
+        q, k, v, out, lse, do, True), windows=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
@@ -609,7 +642,7 @@ def main() -> int:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
     plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, True),
-                       reps=10)
+                       windows=5)
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
     bound_ms, bound_by = attention_bound(B, L, L, H, D, dt, True)
     log(f"[times] {card}: flash_attention_fwd B={B} L={L} H={H} D={D} bf16 "

@@ -2,64 +2,74 @@
 //
 // Replaces the two Pallas TPU kernels that ray_tpu/ops/flash_attention.py's
 // _flash_bwd launches: _dq_kernel (dq_kernel here) and _dkv_kernel
-// (dkv_kernel here). Same function: from q [B, Lq, H, D], k/v [B, Lk, H, D],
-// the output gradient dO [B, Lq, H, D], and the f32 rows LSE and
+// (dkv_kernel for f32 inputs, dkv_bf16_kernel for bf16; the dtype alone
+// chooses). Same function: from q [B, Lq, H, D], k/v [B, Lk, H, D], the
+// output gradient dO [B, Lq, H, D], and the f32 rows LSE and
 // Delta = rowsum(dO * O), both [B, H, Lq] and both computed before the
 // launch, each kernel recomputes S = scale * Q K^T and P = exp(S - LSE)
 // under the forward's mask (top-left causal, row >= col; pad columns
 // masked), then
 //   dP = dO V^T,   dS = P * (dP - Delta) * scale,
 //   dQ = dS K                        (dq_kernel),
-//   dV = P^T dO,   dK = dS^T Q       (dkv_kernel).
+//   dV = P^T dO,   dK = dS^T Q       (dkv_kernel, dkv_bf16_kernel).
 //
 // What bounds them on an H100: at the training shape (B=8, L=1024, H=16,
-// D=64, bf16, causal: 524,800 kept (row, col) pairs a head) dq_kernel does
-// three dots, 25.8 GFLOP (26 us at the 989 TFLOP/s bf16 tensor-core rate),
-// and moves ~85 MB (25 us at 3.35 TB/s); dkv_kernel does four dots, 34.4
-// GFLOP (35 us), and moves ~102 MB (30 us). Both are bound by operations.
-// This first version stays far from that bound: every product is an f32
-// FMA (67 TFLOP/s peak outside the tensor cores) fed from shared memory,
-// loads do not overlap compute, and S and P are computed once in each
-// kernel, as on the TPU.
+// D=64, bf16, causal: 524,800 kept (row, col) pairs a head) dq does three
+// dots, 25.8 GFLOP (26 us at the 989 TFLOP/s bf16 tensor-core rate), and
+// moves ~85 MB (25 us at 3.35 TB/s); dkv does four dots, 34.4 GFLOP (35 us),
+// and moves ~102 MB (30 us). Both are bound by operations, and no kernel on
+// the f32 FMA units (67 TFLOP/s) can do dkv's work in under 0.513 ms.
 //
-// Design.
-// - Two kernels, as on the TPU, so that neither needs atomics and both are
-//   deterministic. The TPU carried dQ (and dK, dV) in VMEM scratch across
-//   sequential grid steps; Hopper blocks run in no order, so each block
-//   owns one 64-row output tile and loops over the other operand's tiles
-//   itself, with the sums in registers (as the forward keeps m, l and O).
+// dkv_bf16_kernel (bf16, tensor cores).
+// - One block of one warpgroup (128 threads) per (b*h, 64-row K tile). K
+//   and V are loaded once; the loop over Q tiles starts at the first tile
+//   the causal rule lets through (iq0 = k0 / BQ), so a K tile no query
+//   reaches (causal, Lk > Lq) runs no iteration and stores exact zeros.
+// - Q, dO and the LSE and Delta rows of each Q tile stream in through
+//   16-byte (and 4-byte) cp.async copies in two stages, so tile i+1 arrives
+//   while tile i is computed. Tiles stay bf16 in shared memory in wgmma's
+//   swizzled layout (hopper.cuh); rows past Lq are zero-filled by the copy
+//   and LSE and Delta are never read past Lq.
+// - S^T = K Q^T and dP^T = V dO^T: wgmma m64nBQk16, A = K or V and B = Q or
+//   dO from shared memory, both K-major.
+// - P^T and dS^T in registers from the accumulator fragments, masked by
+//   select as _dkv_kernel masks them (pad Q rows included), only on tiles
+//   that cross the diagonal or a ragged edge; both rounded to bf16.
+// - dV += P^T dO and dK += dS^T Q: wgmma with A from registers (the
+//   accumulator fragment of the previous product is the A fragment of the
+//   next) and B = dO or Q from shared memory, MN-major: the same shared
+//   copy serves both reads. N = D.
+// - Registers: dK and dV take D/2 f32 registers each a thread (64 + 64 at
+//   D = 128), so the Q tile is 32 rows at D = 128 (64 below), which keeps
+//   S^T and dP^T at 16 registers each and ptxas free of spills.
+// - Precision: S^T and dP^T from bf16 operands accumulate in f32 exactly
+//   what the TPU's f32 upcast computes; only P^T (before P^T dO) and dS^T
+//   (before dS^T Q) are rounded to bf16, each by at most 2^-9 relative.
+//
+// dq_kernel (both dtypes) and dkv_kernel (f32), every product an f32 FMA so
+// that f32 gradients keep the reference's 2e-4 tolerance.
 // - dq_kernel: one block per (b*h, 64-row Q tile), Q tiles launched
 //   last-first so the longest causal rows start first; the loop over
 //   64-row K/V tiles stops at the causal diagonal (ik*BK < (iq+1)*BQ, as
 //   the TPU's `run`).
-// - dkv_kernel: one block per (b*h, 64-row K tile); the loop over 64-row Q
-//   tiles starts at the first tile the same rule lets through. A K tile no
-//   query reaches (causal, Lk > Lq) runs no iteration and writes exact
-//   zeros, as the TPU's zeroed scratch does at _finalize.
-// - 256 threads as a 16 x 16 grid, as in the forward: thread (ty, tx) owns
-//   rows ty*4 .. ty*4+3 of its block's tile and score columns tx + 16*j
-//   (j < 4) of the other tile, so each of its 16 scores needs no exchange;
-//   P or dS goes through shared memory once for the last dot(s), where the
-//   same thread owns output columns tx + 16*j (j < D/16).
+// - dkv_kernel: one block per (b*h, 64-row K tile), as the bf16 kernel.
+// - 256 threads as a 16 x 16 grid: thread (ty, tx) owns rows ty*4 .. ty*4+3
+//   of its block's tile and score columns tx + 16*j (j < 4) of the other
+//   tile; P or dS goes through shared memory once for the last dot(s).
 // - Inputs are upcast to f32 on load into shared memory; row strides are
-//   padded by one word against bank conflicts. At D=128 dq_kernel holds
-//   148,736 bytes of shared memory and dkv_kernel 165,888, above the 48 KB
-//   default, so each launch raises the dynamic shared-memory limit first.
-//   dkv_kernel then keeps 64 f32 sums a thread (dK and dV, 4 rows x 8
-//   columns each) in registers.
-// - Precision as in the forward: every product is an f32 FMA, for f32 and
-//   bf16 inputs alike (never TF32 or bf16 mma), so f32 gradients keep the
-//   reference's 2e-4 tolerance; each output is rounded once, to its dtype.
-// - Ragged edges as on the TPU: pad K/V rows of a last K tile and pad Q and
-//   dO rows of a last Q tile load as 0, their LSE and Delta as 0 (nothing is
-//   read past Lq or Lk), and the mask drops their scores with a select, so
-//   they add nothing to any sum.
-// - The kernels allocate nothing: the caller passes every output. They
-//   launch on the caller's stream and each entry point returns
-//   cudaGetLastError().
+//   padded by one word against bank conflicts. Pad K/V rows of a last K
+//   tile and pad Q and dO rows of a last Q tile load as 0, their LSE and
+//   Delta as 0, and the mask drops their scores with a select.
+//
+// Two kernels, as on the TPU, so that neither needs atomics and both are
+// deterministic. The TPU carried dQ (and dK, dV) in VMEM scratch across
+// sequential grid steps; Hopper blocks run in no order, so each block owns
+// one output tile and loops over the other operand's tiles itself, with
+// the sums in registers. The kernels allocate nothing: the caller passes
+// every output. They launch on the caller's stream and each entry point
+// returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -249,9 +259,10 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   }
 }
 
-// dK and dV for one (b*h, 64-row K tile).
-template <typename T, int D>
+// dK and dV for one (b*h, 64-row K tile), f32 inputs.
+template <int D>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
+  using T = float;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int QS = D + 1;   // padded row stride of the K, V, Q, dO tiles
   constexpr int PS = BQ + 1;  // padded row stride of p_s and ds_s
@@ -402,45 +413,217 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   }
 }
 
+// dK and dV for bf16 inputs on the tensor cores (design in the header).
+template <int D>
+struct Bf16Dkv {
+  // 64 K rows (one warpgroup); Q tiles of 64 rows, 32 at D = 128 so that
+  // dK and dV (64 f32 registers each there) leave room for S^T and dP^T.
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  using KTile = hopper::SwTile<BK, D>;
+  using QTile = hopper::SwTile<BQ, D>;
+  // One stage: Q, dO, then LSE and Delta rows (f32), rounded up to 1024.
+  static constexpr int STAGE = (2 * QTile::BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  // K, V, two stages; 1024 bytes of slack to align the base.
+  static constexpr size_t SMEM = 1024 + 2 * KTile::BYTES + 2 * STAGE;
+};
+
+template <int D>
+__global__ void __launch_bounds__(hopper::WG_THREADS)
+    dkv_bf16_kernel(Params p) {
+  using namespace hopper;
+  using KT = typename Bf16Dkv<D>::KTile;
+  using QT = typename Bf16Dkv<D>::QTile;
+  constexpr int BQ2 = Bf16Dkv<D>::BQ;  // Q rows per tile
+  constexpr int STAGE = Bf16Dkv<D>::STAGE;
+  constexpr int NS = BQ2 / 2;  // S^T (and dP^T) accumulators a thread
+  constexpr int NO = D / 2;    // dK (and dV) accumulators a thread
+  constexpr float LOG2E = 1.4426950408889634f;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + KT::BYTES;
+  const uint32_t st_s = v_s + KT::BYTES;  // stage s: Q, dO, LSE, Delta
+  const float* st_f = reinterpret_cast<const float*>(
+      smem_raw + (st_s - smem_u32(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ik = blockIdx.x;  // low K tiles see the most Q tiles: start first
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = ik * BK;
+
+  const __nv_bfloat16* qp =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kp =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vp =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const __nv_bfloat16* dop =
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  __nv_bfloat16* dkp =
+      static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  __nv_bfloat16* dvp =
+      static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  const float* lsep = p.lse + (long long)bh * p.Lq;
+  const float* deltap = p.delta + (long long)bh * p.Lq;
+
+  // Stage s of Q tile iq: Q, dO, then LSE and Delta; rows past Lq are zeros.
+  auto load_stage = [&](int s, int iq) {
+    const uint32_t base = st_s + s * STAGE;
+    const int q0 = iq * BQ2;
+    load_tile<BQ2, D>(base, qp, p.q_sl, q0, p.Lq, tid);
+    load_tile<BQ2, D>(base + QT::BYTES, dop, p.do_sl, q0, p.Lq, tid);
+    if (tid < 2 * BQ2) {
+      const int r = tid % BQ2;
+      const bool ok = q0 + r < p.Lq;
+      const float* src = tid < BQ2 ? lsep : deltap;
+      cp_async4(base + 2 * QT::BYTES + 4 * tid, ok ? src + q0 + r : src, ok);
+    }
+  };
+
+  const int nq = (p.Lq + BQ2 - 1) / BQ2;
+  // Causal: Q tile iq reaches this K tile iff k0 < (iq+1)*BQ.
+  const int iq0 = p.causal ? k0 / BQ2 : 0;
+  load_tile<BK, D>(k_s, kp, p.k_sl, k0, p.Lk, tid);
+  load_tile<BK, D>(v_s, vp, p.v_sl, k0, p.Lk, tid);
+  if (iq0 < nq) load_stage(0, iq0);
+  cp_async_commit();
+
+  // This thread's K rows: krow_a for accumulators with (i & 2) == 0, else +8.
+  const int krow_a = k0 + warp * 16 + lane / 4;
+  float dk[NO], dv[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int iq = iq0; iq < nq; ++iq) {
+    const int j = iq - iq0;
+    const int q0 = iq * BQ2;
+    const uint32_t q_s = st_s + (j & 1) * STAGE;
+    const uint32_t do_s = q_s + QT::BYTES;
+    const float* lse_s = st_f + (j & 1) * (STAGE / 4) + 2 * QT::BYTES / 4;
+    const float* delta_s = lse_s + BQ2;
+    if (iq + 1 < nq) load_stage((j + 1) & 1, iq + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T
+    float st[NS], dpt[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) st[i] = dpt[i] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ2>(st, KT::kmajor(k_s, kk), QT::kmajor(q_s, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ2>(dpt, KT::kmajor(v_s, kk), QT::kmajor(do_s, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T = exp(scale S^T - LSE), dS^T = P^T (dP^T - Delta) scale, masked
+    // by select (pad Q rows too) where the tile needs it.
+    const bool need_mask = q0 + BQ2 > p.Lq || k0 + BK > p.Lk ||
+                           (p.causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);  // Q row in tile
+      const float pv = exp2f((st[i] * p.scale - lse_s[c]) * LOG2E);
+      const float ds = pv * (dpt[i] - delta_s[c]) * p.scale;
+      bool ok = true;
+      if (need_mask) {
+        const int krow = krow_a + 8 * ((i >> 1) & 1);
+        const int qrow = q0 + c;
+        ok = krow < p.Lk && qrow < p.Lq && (!p.causal || qrow >= krow);
+      }
+      st[i] = ok ? pv : 0.f;
+      dpt[i] = ok ? ds : 0.f;
+    }
+
+    // dV += P^T dO and dK += dS^T Q, A operands bf16 in registers.
+    uint32_t pa[BQ2 / 16][4], dsa[BQ2 / 16][4];
+    to_a_fragments<BQ2>(st, pa);
+    to_a_fragments<BQ2>(dpt, dsa);
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ2 / 16; ++kk)
+      wgmma_rs<D>(dv, pa[kk], QT::mnmajor(do_s, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ2 / 16; ++kk)
+      wgmma_rs<D>(dk, dsa[kk], QT::mnmajor(q_s, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // every thread is done with this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < NO; i += 2) {
+    const int krow = krow_a + 8 * ((i >> 1) & 1);
+    if (krow >= p.Lk) continue;
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(dkp + krow * p.dk_sl + col) =
+        __floats2bfloat162_rn(dk[i], dk[i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(dvp + krow * p.dv_sl + col) =
+        __floats2bfloat162_rn(dv[i], dv[i + 1]);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static hopper::SmemLimit limit;
+  cudaError_t err = limit.raise((const void*)dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + BQ - 1) / BQ, B * p.H);
   dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dkv_f32(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static hopper::SmemLimit limit;
+  cudaError_t err = limit.raise((const void*)dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lk + BK - 1) / BK, B * p.H);
-  dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  dkv_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// which: 0 = dq_kernel, 1 = dkv_kernel.
-template <typename T, int D>
-cudaError_t launch(const Params& p, int B, int which, cudaStream_t stream) {
-  return which == 0 ? launch_dq<T, D>(p, B, stream)
-                    : launch_dkv<T, D>(p, B, stream);
+template <int D>
+cudaError_t launch_dkv_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = Bf16Dkv<D>::SMEM;
+  static hopper::SmemLimit limit;
+  cudaError_t err = limit.raise((const void*)dkv_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lk + BK - 1) / BK, B * p.H);
+  dkv_bf16_kernel<D><<<grid, hopper::WG_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const Params& p, int B, int D, int which,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(p, B, which, stream);
-    case 32: return launch<T, 32>(p, B, which, stream);
-    case 64: return launch<T, 64>(p, B, which, stream);
-    case 128: return launch<T, 128>(p, B, which, stream);
+// which: 0 = dq_kernel, 1 = dkv (f32: dkv_kernel, bf16: dkv_bf16_kernel).
+template <int D>
+cudaError_t launch(const Params& p, int B, int dtype, int which,
+                   cudaStream_t stream) {
+  switch (2 * dtype + which) {
+    case 0: return launch_dq<float, D>(p, B, stream);
+    case 1: return launch_dkv_f32<D>(p, B, stream);
+    case 2: return launch_dq<__nv_bfloat16, D>(p, B, stream);
+    case 3: return launch_dkv_bf16<D>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -450,9 +633,11 @@ int run(const Params& p, int device, int B, int D, int dtype, int which,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_d<float>(p, B, D, which, s);
-    case 1: return dispatch_d<__nv_bfloat16>(p, B, D, which, s);
+  switch (D) {
+    case 16: return launch<16>(p, B, dtype, which, s);
+    case 32: return launch<32>(p, B, dtype, which, s);
+    case 64: return launch<64>(p, B, dtype, which, s);
+    case 128: return launch<128>(p, B, dtype, which, s);
     default: return cudaErrorInvalidValue;
   }
 }

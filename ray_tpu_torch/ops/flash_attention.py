@@ -9,6 +9,11 @@ H100 and how it is laid out):
 - ``_dq_kernel`` and ``_dkv_kernel`` -> ``csrc/flash_attention_bwd.cu``;
   plain version ``flash_attention_bwd_reference``.
 
+The dtype alone picks the kernel. bf16 inputs run the forward and dkv on
+the tensor cores (``wgmma``, with P and dS rounded to bf16 before their
+dots); f32 inputs, and dq for both dtypes, run every product as an f32
+FMA.
+
 ``_FlashAttention`` is the ``torch.autograd.Function`` that the JAX
 package's ``jax.custom_vjp`` becomes: its forward saves (q, k, v, O, LSE),
 its backward returns (dq, dk, dv). Delta = rowsum(dO * O) is a torch op
@@ -16,7 +21,7 @@ outside the kernels, as JAX computes it outside Pallas.
 
 Routing is by the device of the inputs and nothing else:
 - a CUDA tensor launches the kernels, or raises (unsupported dtype, head
-  dim or layout);
+  dim, layout or alignment);
 - only a CPU tensor takes the plain versions, through the same Function.
 
 ``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches,
@@ -103,7 +108,13 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> None:
-    """Raise on what the CUDA kernel does not take."""
+    """Raise on what the CUDA kernels do not take.
+
+    The bf16 kernels copy 16-byte chunks into shared memory with
+    ``cp.async``, so each bf16 tensor must start on a 16-byte boundary and
+    its batch, sequence and head strides must be multiples of 16 bytes (8
+    elements). The f32 kernels read element by element and take any
+    layout that is contiguous in head_dim."""
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash-attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -114,8 +125,23 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in head_dim, "
                              f"strides {t.stride()}")
+        if t.dtype == torch.bfloat16 and not _aligned_16(t):
+            raise ValueError(
+                f"bf16 {name} must start on a 16-byte boundary with batch, "
+                f"sequence and head strides that are multiples of 8 "
+                f"elements; got address {t.data_ptr()} and strides "
+                f"{t.stride()}")
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError("batch * heads must be at most 65535 (grid limit)")
+
+
+def _aligned_16(t: torch.Tensor) -> bool:
+    """Base address, and the stride of every dim but the last that has
+    more than one index, at 16 bytes."""
+    elt = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(st * elt % 16 == 0
+                    for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -162,9 +188,11 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool,
 
 def _launch_bwd(q, k, v, out, lse, do, causal: bool, scale: float):
     _check_kernel_inputs(q, k, v)
-    if do.stride(-1) != 1:
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                              and not _aligned_16(do)):
         # The gradient autograd hands back may be strided in D (e.g. after
-        # a transpose downstream); the kernels read D contiguously.
+        # a transpose downstream) or off the 16-byte grid the bf16 kernel's
+        # copies need; the kernels read D contiguously.
         do = do.contiguous()
     delta = attention_delta(out, do)
     lse = lse.contiguous()
@@ -326,8 +354,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``torch.inference_mode()``, ``torch.no_grad()``, or no input that
     requires grad) it runs the forward alone and saves nothing.
     ``block_q``/``block_k`` keep the JAX signature; they are tiling hints
-    that change no result, and the CUDA kernels' 64 x 64 tiles are fixed by
-    their thread layout.
+    that change no result. The CUDA kernels fix their own tiles: 64 Q rows
+    by 64 K rows a step in the forward and dq, and in dkv 64 K rows by 64
+    Q rows (32 for bf16 at head_dim 128).
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

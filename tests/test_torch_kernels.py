@@ -153,3 +153,74 @@ def test_flash_kernel_gradient_runs_through_the_kernels():
     ref, _ = fa.flash_attention_reference(q, k, v)
     want = torch.autograd.grad(ref, (q, k, v), do)
     _assert_grads_close(got, want, torch.float32)
+
+
+def _packed_bf16(seed, B, L, H, D, device):
+    """q, k, v as views into one packed [B, L, 3, H, D] bf16 tensor."""
+    packed = torch.tensor(np.random.default_rng(seed).standard_normal(
+        (B, L, 3, H, D), dtype=np.float32), device=device).bfloat16()
+    return packed.unbind(2)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_kernel_takes_strided_bf16_views():
+    """The tensor-core forward on q, k, v unbound from one packed tensor:
+    16-byte aligned, row strides of 3 * H * D elements."""
+    device = _cuda_or_skip()
+    q, k, v = _packed_bf16(10, 2, 160, 4, 64, device)
+    assert not q.is_contiguous()
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, True)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_take_strided_bf16_views():
+    device = _cuda_or_skip()
+    q, k, v = _packed_bf16(11, 2, 160, 4, 64, device)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    do = _do(12, q)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    _assert_grads_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_flash_kernels_at_the_timing_shape(which):
+    """bf16 at the shape chip_smoke.py times (B 8, L 1024, H 16, D 64,
+    causal): every diagonal tile across 2048 blocks."""
+    device = _cuda_or_skip()
+    q, k, v = _qkv(13, 8, 1024, 1024, 16, 64, torch.bfloat16, device)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    if which == "fwd":
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, True)
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(lse, ref_lse, rtol=2e-2, atol=2e-2)
+        return
+    do = _do(14, q)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    _assert_grads_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_misaligned_bf16():
+    """A bf16 input whose base pointer is off the 16-byte grid raises before
+    any launch; so does a row stride that is not a multiple of 8."""
+    device = _cuda_or_skip()
+    q, k, v = _qkv(15, 1, 64, 64, 2, 64, torch.bfloat16, device)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=device)
+    shifted = flat[1:].view(q.shape)
+    assert shifted.data_ptr() % 16 != 0
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_fwd(shifted, k, v, True)
+    odd = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16,
+                      device=device)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_fwd(odd, k, v, True)
+    assert fa.launches == before

@@ -283,3 +283,121 @@ def test_bwd_rejects_bad_residuals():
     meta = [t.to("meta") for t in (q, k, v, out, lse, out)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention_bwd(*meta)
+
+
+def test_kernel_alignment_checks():
+    """bf16 inputs must sit on the 16-byte grid the tensor-core kernels'
+    16-byte copies need; f32 inputs take any layout contiguous in D."""
+    q, k, v = (torch.tensor(x).bfloat16() for x in _qkv(20, 1, 16, 2, 64))
+    packed = torch.zeros(1, 16, 3, 2, 64, dtype=torch.bfloat16)
+    fa._check_kernel_inputs(*packed.unbind(2))
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_kernel_inputs(shifted.view(q.shape), k, v)
+    odd_rows = torch.zeros(1, 16, 2, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_kernel_inputs(q, odd_rows, v)
+    # One head: its stride is never used, so it need not be aligned.
+    fa._check_kernel_inputs(*(torch.zeros(1, 16, 1, 64, dtype=torch.bfloat16)
+                              .as_strided((1, 16, 1, 64), (1024, 64, 3, 1))
+                              for _ in range(3)))
+    f32 = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    fa._check_kernel_inputs(f32, f32, f32)
+
+
+def _tc_forward(q, k, v, causal, scale, block_k=64):
+    """Plain emulation of the bf16 tensor-core forward: S from bf16 operands
+    with f32 sums, the online softmax over 64-column tiles, and P rounded
+    to bf16 before P V. Returns (O in bf16, LSE f32 [B, H, Lq])."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    m = torch.full((B, H, Lq), -1e30)
+    l = torch.zeros((B, H, Lq))
+    acc = torch.zeros((B, H, Lq, D))
+    rows = torch.arange(Lq)[:, None]
+    for k0 in range(0, Lk, block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * scale
+        mask = torch.ones((Lq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            mask = rows >= torch.arange(k0, k0 + kt.shape[1])[None, :]
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.bfloat16().float(), vt)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    out = (acc / l[..., None]).transpose(1, 2).bfloat16()
+    return out, m + torch.log(l)
+
+
+def _tc_backward(q, k, v, out, lse, do, causal, scale):
+    """Plain emulation of the bf16 backward kernels: P and dS in f32 from
+    bf16 operands; dkv rounds P (before P^T dO) and dS (before dS^T Q) to
+    bf16; dq keeps dS in f32 (its kernel is f32 FMAs)."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    Lq, Lk = q.shape[1], k.shape[1]
+    delta = fa.attention_delta(out, do)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    if causal:
+        mask = torch.ones((Lq, Lk), dtype=torch.bool).tril()
+        p, ds = torch.where(mask, p, 0.0), torch.where(mask, ds, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.bfloat16().float(), qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
+    return tuple(g.bfloat16() for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 200, 333, 2, 16), (1, 256, 128, 2, 64),
+                                   (2, 192, 192, 1, 64)])
+def test_tensor_core_rounding_fits_the_bf16_tolerance(shape, causal):
+    """The bf16 kernels round P (forward P V, dkv's P^T dO) and dS (dkv's
+    dS^T Q) to bf16 before those dots, where the TPU kernels keep them in
+    f32. Emulated in plain PyTorch, that rounding stays inside the port's
+    bf16 tolerances against ``_flash_fwd`` and ``_flash_bwd`` (interpret
+    mode) on the same bf16 inputs: O and LSE at 2e-2, gradients at 1e-2 of
+    the largest |grad|."""
+    B, Lq, Lk, H, D = shape
+    q, k, v = _qkv(21, B, Lq, H, D, Lk)
+    do = np.random.default_rng(22).standard_normal((B, Lq, H, D),
+                                                   dtype=np.float32)
+    scale = 1.0 / np.sqrt(D)
+
+    def bhld(x):
+        return jnp.asarray(x, jnp.bfloat16).transpose(0, 2, 1, 3).reshape(
+            B * H, x.shape[1], D)
+
+    def blhd(x):
+        x = np.asarray(x, dtype=np.float32)
+        return torch.tensor(x.reshape(B, H, x.shape[1], D).transpose(
+            0, 2, 1, 3))
+
+    ref_out, ref_lse = _flash_fwd(bhld(q), bhld(k), bhld(v), scale, causal,
+                                  128, 128, True)
+    ref_grads = _flash_bwd(scale, causal, 128, 128, True,
+                           (bhld(q), bhld(k), bhld(v), ref_out, ref_lse),
+                           bhld(do))
+    tq, tk, tv, tdo = (torch.tensor(x).bfloat16() for x in (q, k, v, do))
+    out, lse = _tc_forward(tq, tk, tv, causal, scale)
+    torch.testing.assert_close(out.float(), blhd(ref_out), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, torch.tensor(np.asarray(
+        ref_lse)).reshape(B, H, Lq), rtol=2e-2, atol=2e-2)
+    # The backward from the reference's own residuals, as the kernels get
+    # them from the forward.
+    grads = _tc_backward(tq, tk, tv, blhd(ref_out).bfloat16(),
+                         torch.tensor(np.asarray(ref_lse)).reshape(B, H, Lq),
+                         tdo, causal, scale)
+    for g, w, name in zip(grads, ref_grads, "qkv"):
+        w = blhd(w)
+        torch.testing.assert_close(
+            g.float(), w, rtol=1e-2, atol=1e-2 * w.abs().max().item(),
+            msg=lambda m: f"d{name}: {m}")
