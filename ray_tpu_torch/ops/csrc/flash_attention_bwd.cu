@@ -1,24 +1,50 @@
 // Flash-attention backward for Hopper (sm_90a), CUDA C++: dQ, and dK with dV.
 //
 // Replaces the two Pallas TPU kernels that ray_tpu/ops/flash_attention.py's
-// _flash_bwd launches: _dq_kernel (dq_kernel here) and _dkv_kernel
-// (dkv_kernel for f32 inputs, dkv_bf16_kernel for bf16; the dtype alone
-// chooses). Same function: from q [B, Lq, H, D], k/v [B, Lk, H, D], the
-// output gradient dO [B, Lq, H, D], and the f32 rows LSE and
-// Delta = rowsum(dO * O), both [B, H, Lq] and both computed before the
+// _flash_bwd launches: _dq_kernel (dq_bf16_kernel for bf16 inputs, dq_kernel
+// for f32) and _dkv_kernel (dkv_bf16_kernel for bf16, dkv_kernel for f32);
+// the dtype alone chooses. Same function: from q [B, Lq, H, D], k/v
+// [B, Lk, H, D], the output gradient dO [B, Lq, H, D], and the f32 rows LSE
+// and Delta = rowsum(dO * O), both [B, H, Lq] and both computed before the
 // launch, each kernel recomputes S = scale * Q K^T and P = exp(S - LSE)
 // under the forward's mask (top-left causal, row >= col; pad columns
 // masked), then
 //   dP = dO V^T,   dS = P * (dP - Delta) * scale,
-//   dQ = dS K                        (dq_kernel),
-//   dV = P^T dO,   dK = dS^T Q       (dkv_kernel, dkv_bf16_kernel).
+//   dQ = dS K                        (dq_bf16_kernel, dq_kernel),
+//   dV = P^T dO,   dK = dS^T Q       (dkv_bf16_kernel, dkv_kernel).
 //
 // What bounds them on an H100: at the training shape (B=8, L=1024, H=16,
 // D=64, bf16, causal: 524,800 kept (row, col) pairs a head) dq does three
 // dots, 25.8 GFLOP (26 us at the 989 TFLOP/s bf16 tensor-core rate), and
 // moves ~85 MB (25 us at 3.35 TB/s); dkv does four dots, 34.4 GFLOP (35 us),
 // and moves ~102 MB (30 us). Both are bound by operations, and no kernel on
-// the f32 FMA units (67 TFLOP/s) can do dkv's work in under 0.513 ms.
+// the f32 FMA units (67 TFLOP/s) can do dq's work in under 0.385 ms or
+// dkv's in under 0.513 ms, so for bf16 every dot of both runs on the tensor
+// cores (wgmma) and the loads overlap the products.
+//
+// dq_bf16_kernel (bf16, tensor cores): the forward's loop, with dO beside Q
+// and dS in P's place.
+// - One block of one warpgroup (128 threads) per (b*h, 64-row Q tile), Q
+//   tiles launched last-first so the longest causal rows start first. Q and
+//   dO are loaded once; each thread reads the LSE and Delta of its two
+//   accumulator rows into registers once, never past Lq.
+// - K and V stream in through 16-byte cp.async copies in two stages, so
+//   tile j+1 arrives while tile j is computed; rows past Lk are zero-filled
+//   by the copy. The loop stops at the causal diagonal (ik*BK < (iq+1)*BQ,
+//   the TPU's `run`).
+// - S = Q K^T and dP = dO V^T: wgmma m64nBKk16, A = Q or dO and B = K or V
+//   from shared memory, both K-major, in one commit group.
+// - P and dS in registers from the accumulator fragments, masked by select
+//   as _dq_kernel masks them, only on tiles that cross the diagonal or a
+//   ragged edge; dS rounded to bf16.
+// - dQ += dS K: wgmma m64nDk16 with A = dS from registers and B = K from
+//   shared memory, MN-major: the copy of K that S read K-major.
+// - Registers: dQ takes D/2 f32 registers a thread (64 at D = 128), so the
+//   K/V tile is 32 rows at D = 128 (64 below), which keeps S and dP at 16
+//   registers each there and ptxas free of spills.
+// - Precision: S and dP from bf16 operands accumulate in f32 exactly what
+//   the TPU's f32 upcast computes; only dS is rounded to bf16 before dS K,
+//   by at most 2^-9 relative (the TPU keeps it in f32).
 //
 // dkv_bf16_kernel (bf16, tensor cores).
 // - One block of one warpgroup (128 threads) per (b*h, 64-row K tile). K
@@ -46,20 +72,18 @@
 //   what the TPU's f32 upcast computes; only P^T (before P^T dO) and dS^T
 //   (before dS^T Q) are rounded to bf16, each by at most 2^-9 relative.
 //
-// dq_kernel (both dtypes) and dkv_kernel (f32), every product an f32 FMA so
-// that f32 gradients keep the reference's 2e-4 tolerance.
-// - dq_kernel: one block per (b*h, 64-row Q tile), Q tiles launched
-//   last-first so the longest causal rows start first; the loop over
-//   64-row K/V tiles stops at the causal diagonal (ik*BK < (iq+1)*BQ, as
-//   the TPU's `run`).
+// dq_kernel and dkv_kernel (f32 inputs), every product an f32 FMA so that
+// f32 gradients keep the reference's 2e-4 tolerance.
+// - dq_kernel: one block per (b*h, 64-row Q tile), as the bf16 kernel, with
+//   64-row K/V tiles.
 // - dkv_kernel: one block per (b*h, 64-row K tile), as the bf16 kernel.
 // - 256 threads as a 16 x 16 grid: thread (ty, tx) owns rows ty*4 .. ty*4+3
 //   of its block's tile and score columns tx + 16*j (j < 4) of the other
 //   tile; P or dS goes through shared memory once for the last dot(s).
-// - Inputs are upcast to f32 on load into shared memory; row strides are
-//   padded by one word against bank conflicts. Pad K/V rows of a last K
-//   tile and pad Q and dO rows of a last Q tile load as 0, their LSE and
-//   Delta as 0, and the mask drops their scores with a select.
+// - Tiles are f32 in shared memory; row strides are padded by one word
+//   against bank conflicts. Pad K/V rows of a last K tile and pad Q and dO
+//   rows of a last Q tile load as 0, their LSE and Delta as 0, and the mask
+//   drops their scores with a select.
 //
 // Two kernels, as on the TPU, so that neither needs atomics and both are
 // deterministic. The TPU carried dQ (and dK, dV) in VMEM scratch across
@@ -101,15 +125,6 @@ struct Params {
   long long dv_sb, dv_sl, dv_sh;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 template <int D>
 constexpr size_t dq_smem_bytes() {
   // q_s, do_s [BQ][D+1]; k_s, v_s [BK][D+1]; ds_s [BQ][BK+1]; all f32.
@@ -125,9 +140,10 @@ constexpr size_t dkv_smem_bytes() {
                                   2 * BK * (BQ + 1) + 2 * BQ);
 }
 
-// dQ for one (b*h, 64-row Q tile).
-template <typename T, int D>
+// dQ for one (b*h, 64-row Q tile), f32 inputs.
+template <int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
+  using T = float;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int QS = D + 1;   // padded row stride of the Q, dO, K, V tiles
   constexpr int PS = BK + 1;  // padded row stride of ds_s
@@ -162,8 +178,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
     const int r = i / D, c = i % D;
     const int row = q0 + r;
     const bool ok = row < p.Lq;
-    q_s[r * QS + c] = ok ? to_f32(qp[row * p.q_sl + c]) : 0.f;
-    do_s[r * QS + c] = ok ? to_f32(dop[row * p.do_sl + c]) : 0.f;
+    q_s[r * QS + c] = ok ? qp[row * p.q_sl + c] : 0.f;
+    do_s[r * QS + c] = ok ? dop[row * p.do_sl + c] : 0.f;
   }
 
   float lse[TM], delta[TM], acc[TM][TD];
@@ -186,8 +202,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
       const int r = i / D, c = i % D;
       const int col = k0 + r;
       const bool ok = col < p.Lk;
-      k_s[r * QS + c] = ok ? to_f32(kp[col * p.k_sl + c]) : 0.f;
-      v_s[r * QS + c] = ok ? to_f32(vp[col * p.v_sl + c]) : 0.f;
+      k_s[r * QS + c] = ok ? kp[col * p.k_sl + c] : 0.f;
+      v_s[r * QS + c] = ok ? vp[col * p.v_sl + c] : 0.f;
     }
     __syncthreads();
 
@@ -255,7 +271,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
     if (row >= p.Lq) continue;
 #pragma unroll
     for (int j = 0; j < TD; ++j)
-      store(dqp + row * p.dq_sl + tx + 16 * j, acc[i][j]);
+      dqp[row * p.dq_sl + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -301,8 +317,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     const int r = i / D, c = i % D;
     const int col = k0 + r;
     const bool ok = col < p.Lk;
-    k_s[r * QS + c] = ok ? to_f32(kp[col * p.k_sl + c]) : 0.f;
-    v_s[r * QS + c] = ok ? to_f32(vp[col * p.v_sl + c]) : 0.f;
+    k_s[r * QS + c] = ok ? kp[col * p.k_sl + c] : 0.f;
+    v_s[r * QS + c] = ok ? vp[col * p.v_sl + c] : 0.f;
   }
 
   float dk[TM][TD], dv[TM][TD];
@@ -322,8 +338,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
       const int r = i / D, c = i % D;
       const int row = q0 + r;
       const bool ok = row < p.Lq;
-      q_s[r * QS + c] = ok ? to_f32(qp[row * p.q_sl + c]) : 0.f;
-      do_s[r * QS + c] = ok ? to_f32(dop[row * p.do_sl + c]) : 0.f;
+      q_s[r * QS + c] = ok ? qp[row * p.q_sl + c] : 0.f;
+      do_s[r * QS + c] = ok ? dop[row * p.do_sl + c] : 0.f;
     }
     if (tid < BQ) {
       const int row = q0 + tid;
@@ -407,9 +423,158 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     if (col >= p.Lk) continue;
 #pragma unroll
     for (int j = 0; j < TD; ++j) {
-      store(dkp + col * p.dk_sl + tx + 16 * j, dk[i][j]);
-      store(dvp + col * p.dv_sl + tx + 16 * j, dv[i][j]);
+      dkp[col * p.dk_sl + tx + 16 * j] = dk[i][j];
+      dvp[col * p.dv_sl + tx + 16 * j] = dv[i][j];
     }
+  }
+}
+
+// dQ for bf16 inputs on the tensor cores (design in the header).
+template <int D>
+struct Bf16Dq {
+  // 64 Q rows (one warpgroup); K/V tiles of 64 rows, 32 at D = 128 so that
+  // dQ (64 f32 registers there) leaves room for S and dP.
+  static constexpr int BK = D == 128 ? 32 : 64;
+  using QTile = hopper::SwTile<BQ, D>;
+  using KTile = hopper::SwTile<BK, D>;
+  // Q, dO, then two stages of (K, V); 1024 bytes of slack to align the base.
+  static constexpr size_t SMEM = 1024 + 2 * QTile::BYTES + 2 * 2 * KTile::BYTES;
+};
+
+template <int D>
+__global__ void __launch_bounds__(hopper::WG_THREADS)
+    dq_bf16_kernel(Params p) {
+  using namespace hopper;
+  using QT = typename Bf16Dq<D>::QTile;
+  using KT = typename Bf16Dq<D>::KTile;
+  constexpr int BK2 = Bf16Dq<D>::BK;  // K/V rows per tile
+  constexpr int NS = BK2 / 2;  // S (and dP) accumulators a thread
+  constexpr int NO = D / 2;    // dQ accumulators a thread
+  constexpr float LOG2E = 1.4426950408889634f;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + QT::BYTES;
+  const uint32_t kv_s = do_s + QT::BYTES;  // stage s: K, then V
+  constexpr uint32_t STAGE = 2 * KT::BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int iq = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = iq * BQ;
+
+  const __nv_bfloat16* qp =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kp =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vp =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const __nv_bfloat16* dop =
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  __nv_bfloat16* dqp =
+      static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  const float* lsep = p.lse + (long long)bh * p.Lq;
+  const float* deltap = p.delta + (long long)bh * p.Lq;
+
+  int nk = (p.Lk + BK2 - 1) / BK2;
+  if (p.causal) nk = min(nk, (q0 + BQ + BK2 - 1) / BK2);
+
+  load_tile<BQ, D>(q_s, qp, p.q_sl, q0, p.Lq, tid);
+  load_tile<BQ, D>(do_s, dop, p.do_sl, q0, p.Lq, tid);
+  load_tile<BK2, D>(kv_s, kp, p.k_sl, 0, p.Lk, tid);
+  load_tile<BK2, D>(kv_s + KT::BYTES, vp, p.v_sl, 0, p.Lk, tid);
+  cp_async_commit();
+
+  // This thread's rows: row_a for accumulators with (i & 2) == 0, else +8;
+  // their LSE (pre-scaled by log2 e) and Delta, 0 past Lq.
+  const int row_a = q0 + warp * 16 + lane / 4;
+  const float scale2 = p.scale * LOG2E;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    lse2[r] = row < p.Lq ? lsep[row] * LOG2E : 0.f;
+    delta[r] = row < p.Lq ? deltap[row] : 0.f;
+  }
+  float dq[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK2;
+    const uint32_t k_s = kv_s + (j & 1) * STAGE;
+    const uint32_t v_s = k_s + KT::BYTES;
+    if (j + 1 < nk) {  // tile j + 1 into the other stage, freed at j - 1
+      const uint32_t next = kv_s + ((j + 1) & 1) * STAGE;
+      load_tile<BK2, D>(next, kp, p.k_sl, k0 + BK2, p.Lk, tid);
+      load_tile<BK2, D>(next + KT::BYTES, vp, p.v_sl, k0 + BK2, p.Lk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: tile j (and Q, dO) landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T
+    float s[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK2>(s, QT::kmajor(q_s, kk), KT::kmajor(k_s, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK2>(dp, QT::kmajor(do_s, kk), KT::kmajor(v_s, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(scale S - LSE), dS = P (dP - Delta) scale into s, masked by
+    // select where the tile crosses the diagonal or the ragged edge.
+    const bool need_mask = k0 + BK2 > p.Lk || (p.causal && k0 + BK2 - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1;
+      const float pv = exp2f(fmaf(s[i], scale2, -lse2[r]));
+      const float ds = pv * (dp[i] - delta[r]) * p.scale;
+      bool ok = true;
+      if (need_mask) {
+        const int row = row_a + 8 * r;
+        const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        ok = col < p.Lk && (!p.causal || row >= col);
+      }
+      s[i] = ok ? ds : 0.f;
+    }
+
+    // dQ += dS K, dS bf16 in registers, K read MN-major.
+    uint32_t dsa[BK2 / 16][4];
+    to_a_fragments<BK2>(s, dsa);
+    fence_regs(dq);
+    fence_regs(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK2 / 16; ++kk)
+      wgmma_rs<D>(dq, dsa[kk], KT::mnmajor(k_s, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    __syncthreads();  // every thread is done with this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < NO; i += 2) {
+    const int row = row_a + 8 * ((i >> 1) & 1);
+    if (row >= p.Lq) continue;
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(dqp + row * p.dq_sl + col) =
+        __floats2bfloat162_rn(dq[i], dq[i + 1]);
   }
 }
 
@@ -582,14 +747,25 @@ __global__ void __launch_bounds__(hopper::WG_THREADS)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dq_f32(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static hopper::SmemLimit limit;
-  cudaError_t err = limit.raise((const void*)dq_kernel<T, D>, smem);
+  cudaError_t err = limit.raise((const void*)dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + BQ - 1) / BQ, B * p.H);
-  dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  dq_kernel<D><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = Bf16Dq<D>::SMEM;
+  static hopper::SmemLimit limit;
+  cudaError_t err = limit.raise((const void*)dq_bf16_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + BQ - 1) / BQ, B * p.H);
+  dq_bf16_kernel<D><<<grid, hopper::WG_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -615,14 +791,15 @@ cudaError_t launch_dkv_bf16(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// which: 0 = dq_kernel, 1 = dkv (f32: dkv_kernel, bf16: dkv_bf16_kernel).
+// which: 0 = dq (f32: dq_kernel, bf16: dq_bf16_kernel), 1 = dkv (f32:
+// dkv_kernel, bf16: dkv_bf16_kernel).
 template <int D>
 cudaError_t launch(const Params& p, int B, int dtype, int which,
                    cudaStream_t stream) {
   switch (2 * dtype + which) {
-    case 0: return launch_dq<float, D>(p, B, stream);
+    case 0: return launch_dq_f32<D>(p, B, stream);
     case 1: return launch_dkv_f32<D>(p, B, stream);
-    case 2: return launch_dq<__nv_bfloat16, D>(p, B, stream);
+    case 2: return launch_dq_bf16<D>(p, B, stream);
     case 3: return launch_dkv_bf16<D>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }

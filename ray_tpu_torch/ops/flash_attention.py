@@ -9,10 +9,9 @@ H100 and how it is laid out):
 - ``_dq_kernel`` and ``_dkv_kernel`` -> ``csrc/flash_attention_bwd.cu``;
   plain version ``flash_attention_bwd_reference``.
 
-The dtype alone picks the kernel. bf16 inputs run the forward and dkv on
-the tensor cores (``wgmma``, with P and dS rounded to bf16 before their
-dots); f32 inputs, and dq for both dtypes, run every product as an f32
-FMA.
+The dtype alone picks the kernel. bf16 inputs run the forward, dq and dkv
+on the tensor cores (``wgmma``, with P and dS rounded to bf16 before their
+dots); f32 inputs run every product as an f32 FMA.
 
 ``_FlashAttention`` is the ``torch.autograd.Function`` that the JAX
 package's ``jax.custom_vjp`` becomes: its forward saves (q, k, v, O, LSE),
@@ -355,8 +354,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     requires grad) it runs the forward alone and saves nothing.
     ``block_q``/``block_k`` keep the JAX signature; they are tiling hints
     that change no result. The CUDA kernels fix their own tiles: 64 Q rows
-    by 64 K rows a step in the forward and dq, and in dkv 64 K rows by 64
-    Q rows (32 for bf16 at head_dim 128).
+    by 64 K rows a step in the forward and dq (32 K rows for bf16 dq at
+    head_dim 128), and in dkv 64 K rows by 64 Q rows (32 for bf16 at
+    head_dim 128).
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -110,15 +110,32 @@ def test_flash_bwd_kernels_match_plain(causal, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("Lq,Lk", [(384, 128), (1024, 1024)])
-def test_flash_bwd_kernels_other_lengths(Lq, Lk):
+def test_flash_bwd_kernels_other_lengths(Lq, Lk, dtype):
+    """Query rows past Lk (every dq row past 128 sums all of K) and the
+    diagonal of a full 1024 x 1024 causal square."""
     device = _cuda_or_skip()
-    q, k, v = _qkv(5, 1, Lq, Lk, 2, 64, torch.float32, device)
+    q, k, v = _qkv(5, 1, Lq, Lk, 2, 64, dtype, device)
     out, lse = fa.flash_attention_fwd(q, k, v, True)
     do = _do(6, q)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
-    _assert_grads_close(got, want, torch.float32)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_bf16_head_dim_128():
+    """bf16 at head_dim 128 over full-length causal rows: the instantiation
+    whose dQ accumulator takes the most registers (32-row K/V tiles)."""
+    device = _cuda_or_skip()
+    q, k, v = _qkv(16, 2, 1024, 1024, 4, 128, torch.bfloat16, device)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    do = _do(17, q)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    _assert_grads_close(got, want, torch.bfloat16)
 
 
 @pytest.mark.cuda

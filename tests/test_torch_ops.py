@@ -338,7 +338,7 @@ def _tc_forward(q, k, v, causal, scale, block_k=64):
 def _tc_backward(q, k, v, out, lse, do, causal, scale):
     """Plain emulation of the bf16 backward kernels: P and dS in f32 from
     bf16 operands; dkv rounds P (before P^T dO) and dS (before dS^T Q) to
-    bf16; dq keeps dS in f32 (its kernel is f32 FMAs)."""
+    bf16, and dq rounds dS to bf16 before dS K."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     Lq, Lk = q.shape[1], k.shape[1]
     delta = fa.attention_delta(out, do)
@@ -349,22 +349,24 @@ def _tc_backward(q, k, v, out, lse, do, causal, scale):
     if causal:
         mask = torch.ones((Lq, Lk), dtype=torch.bool).tril()
         p, ds = torch.where(mask, p, 0.0), torch.where(mask, ds, 0.0)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.bfloat16().float(), qf)
+    ds16 = ds.bfloat16().float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
     return tuple(g.bfloat16() for g in (dq, dk, dv))
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(1, 200, 333, 2, 16), (1, 256, 128, 2, 64),
-                                   (2, 192, 192, 1, 64)])
+                                   (2, 192, 192, 1, 64),
+                                   (1, 384, 128, 2, 128)])
 def test_tensor_core_rounding_fits_the_bf16_tolerance(shape, causal):
-    """The bf16 kernels round P (forward P V, dkv's P^T dO) and dS (dkv's
-    dS^T Q) to bf16 before those dots, where the TPU kernels keep them in
-    f32. Emulated in plain PyTorch, that rounding stays inside the port's
-    bf16 tolerances against ``_flash_fwd`` and ``_flash_bwd`` (interpret
-    mode) on the same bf16 inputs: O and LSE at 2e-2, gradients at 1e-2 of
-    the largest |grad|."""
+    """The bf16 kernels round P (forward P V, dkv's P^T dO) and dS (dq's
+    dS K, dkv's dS^T Q) to bf16 before those dots, where the TPU kernels
+    keep them in f32. Emulated in plain PyTorch, that rounding stays inside
+    the port's bf16 tolerances against ``_flash_fwd`` and ``_flash_bwd``
+    (interpret mode) on the same bf16 inputs: O and LSE at 2e-2, gradients
+    at 1e-2 of the largest |grad|."""
     B, Lq, Lk, H, D = shape
     q, k, v = _qkv(21, B, Lq, H, D, Lk)
     do = np.random.default_rng(22).standard_normal((B, Lq, H, D),
