@@ -32,14 +32,32 @@ Phases, each of which asserts:
    phase 5 cut to 2 layers, batch 2 x 513 tokens, through the kernels and
    through dense attention from the same weights; loss and grad norm agree
    step by step;
-9. training (the main path of this slice; launches counted here): the
+9. training (the kernels line's launches are counted here): the
    transformer of phase 5 at full depth, bf16, remat on, default AdamW,
    batch 8 x 1025 tokens: 1 warm-up step and 5 measured steps on one seeded
    batch; losses finite and falling, 2 x n_layers forward and n_layers dq
-   and dkv launches a step; step time, tokens/s, peak memory;
+   and dkv launches a step; step time, tokens/s, peak memory; a
+   ``torch.profiler`` trace of 3 steps: the device's busy share and the
+   operators that take its time;
 10. backward times: each backward kernel, the plain backward and PyTorch's
    SDPA backward at the training shape, beside each kernel's bound, and the
-   attention kernels' share of a training step.
+   attention kernels' share of a training step;
+11. ResNet parity: ``resnet18(num_classes=10)`` in f32 (TF32 off), batch 4
+   at 64 x 64 and 37 x 37, from the same weights on the card and on the
+   CPU: logits, loss and every gradient agree (the CPU tests hold the CPU
+   run against the JAX package);
+12. ResNet training (the image path; no attention kernel on it, so the
+   launch counts stay 0): ResNet-50 at batch 128 x 224 x 224 and ResNet-18
+   at batch 256, bf16, SGD(0.1, momentum 0.9), one seeded batch: 1 warm-up
+   step, in which every convolution's tensors must be ``channels_last``,
+   then 10 measured steps; losses finite, and the first update lowers the
+   loss (the recipe overshoots later on this batch); step time, images/s,
+   model TFLOP/s and MFU (``bench.py``'s FLOP count), peak memory, and a
+   trace as in phase 9;
+13. bench: ``python3 -m ray_tpu_torch.bench`` as a user runs it, in a
+   subprocess; it exits 0, its headline has every device figure and no
+   error but ``ppo``'s, and its transformer section launched the three
+   kernels 2 x n_layers / n_layers / n_layers times a step.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -53,10 +71,12 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import importlib
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -93,6 +113,17 @@ PARITY_STEPS = 3
 TRAIN_RTOL = 1e-4
 TRAIN_BATCH = (8, 1025)
 TRAIN_STEPS = 5      # measured, after one warm-up step
+# ResNet: phase 11 (f32 parity, card vs CPU) and phase 12 (bf16 training).
+RESNET_PARITY_SIDES = (64, 37)
+RESNET_PARITY_BATCH = 4
+# f32 with TF32 off: cuDNN and the CPU sum in other orders, and batch norm
+# divides by small standard deviations, so each value is held at
+# RESNET_RTOL of itself plus RESNET_RTOL of its tensor's largest |value|.
+RESNET_RTOL = 1e-3
+RESNET_TRAIN = (("resnet50", 128), ("resnet18", 256))
+RESNET_STEPS = 10    # measured, after one warm-up step
+BENCH_TIMEOUT_S = 600
+REPO = pathlib.Path(__file__).resolve().parent
 
 
 def log(msg: str) -> None:
@@ -553,6 +584,8 @@ def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
         f" batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
         f"{norms}; warm-up step {warm_s:.3f} s; launches a step "
         f"{per_step} (forward, dq, dkv); {launches} in {steps} steps")
+    log_profile("transformer training step",
+                profile_steps(lambda: step_fn(state, tokens)))
     return out
 
 
@@ -589,6 +622,196 @@ def backward_times(fa, device, B, L, H, D, dt):
     bounds = backward_bounds(B, L, L, H, D, dt, True)
     res["dq_bound"], res["dkv_bound"] = bounds["dq"], bounds["dkv"]
     return res
+
+
+def conv_layouts(fn):
+    """Run ``fn()`` and return ``(its result, forward convs, backward convs,
+    tensors not channels_last)``: every 4-d input and output of each
+    ``aten.convolution`` and ``aten.convolution_backward`` it dispatches is
+    checked with ``is_contiguous(memory_format=torch.channels_last)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    seen = {"fwd": 0, "bwd": 0}
+    bad = []
+
+    def check(name, tensors):
+        for i, t in enumerate(tensors):
+            if (isinstance(t, torch.Tensor) and t.dim() == 4 and
+                    not t.is_contiguous(memory_format=torch.channels_last)):
+                bad.append(f"{name}[{i}] {tuple(t.shape)} {t.stride()}")
+
+    class Layouts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten.convolution.default:
+                seen["fwd"] += 1
+                check("convolution", (*args[:2], out))
+            elif func is aten.convolution_backward.default:
+                seen["bwd"] += 1
+                check("convolution_backward", (*args[:2], out[0]))
+            return out
+
+    with Layouts():
+        result = fn()
+    return result, seen["fwd"], seen["bwd"], bad
+
+
+def _assert_close_scaled(got, want, what, tol=RESNET_RTOL):
+    """Hold ``got`` (card) against ``want`` (CPU) at ``tol`` of each value
+    plus ``tol`` of the largest |want|; returns the largest share of that
+    allowed error."""
+    got, want = got.detach().cpu().double(), want.detach().double()
+    atol = tol * max(want.abs().max().item(), 1e-30)
+    torch.testing.assert_close(got, want, rtol=tol, atol=atol,
+                               msg=lambda m: f"{what} differs: {m}")
+    return ((got - want).abs() / (atol + tol * want.abs())).max().item()
+
+
+def resnet_parity_phase(device, sides=RESNET_PARITY_SIDES,
+                        batch=RESNET_PARITY_BATCH):
+    """Phase 11: f32 ResNet-18 on the card against the port's CPU run, from
+    the same weights: logits, loss and every gradient."""
+    from ray_tpu_torch.models import resnet
+    cfg = dataclasses.replace(resnet.resnet18(num_classes=10),
+                              dtype=torch.float32)
+    cpu = torch.device("cpu")
+
+    def run(dev, images, labels):
+        params = resnet.init_params(
+            cfg, torch.Generator().manual_seed(SEED + 6), dev)
+        leaves = resnet.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        x, y = torch.tensor(images, device=dev), torch.tensor(labels,
+                                                              device=dev)
+        logits = resnet.apply(params, x, cfg)
+        loss = resnet.loss_fn(params, x, y, cfg)
+        return [logits, loss, *torch.autograd.grad(loss, leaves)]
+
+    worst = {}
+    for side in sides:
+        rng = np.random.default_rng(SEED + side)
+        images = rng.standard_normal((batch, side, side, 3), dtype=np.float32)
+        labels = rng.integers(0, cfg.num_classes, size=batch)
+        got = run(device, images, labels)
+        want = run(cpu, images, labels)
+        assert len(got) == len(want) == 2 + len(resnet.leaves(
+            resnet.param_shapes(cfg)))
+        names = ["logits", "loss"] + [f"grad {i}" for i in
+                                      range(len(got) - 2)]
+        shares = [_assert_close_scaled(g, w, f"{n} at {side}x{side}")
+                  for g, w, n in zip(got, want, names)]
+        worst[side] = (shares[0], shares[1], max(shares[2:]))
+    log(f"[resnet] f32 parity, resnet18 (10 classes), batch {batch}: card "
+        f"against CPU at rtol {RESNET_RTOL} plus {RESNET_RTOL} of each "
+        f"tensor's largest |value|; largest share of that tolerance "
+        f"(logits, loss, gradients) by side: {worst}")
+
+
+def resnet_train_phase(device, name, batch, steps=RESNET_STEPS):
+    """Phase 12 for one model: bf16 training on one seeded batch; returns
+    step ms, images/s, model TFLOP/s, MFU and peak memory."""
+    from ray_tpu_torch import bench
+    step, cfg, n_params = bench.resnet_train_step(name, batch=batch,
+                                                  device=device)
+    t0 = time.perf_counter()
+    loss, n_fwd, n_bwd, bad = conv_layouts(step)     # warm-up
+    losses = [loss.item()]
+    warm_s = time.perf_counter() - t0
+    assert n_fwd > 0 and n_bwd == n_fwd, (n_fwd, n_bwd)
+    assert not bad, f"convolution tensors not channels_last: {bad[:8]}"
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    assert all(np.isfinite(losses)), losses
+    # Falling: the first update lowers the loss. SGD(0.1, momentum 0.9)
+    # with no warm-up, on one batch of noise with random labels, overshoots
+    # a few steps later at full width (in JAX too), so the last loss is
+    # not held below the first.
+    assert losses[1] < losses[0], losses
+    step_s = statistics.median(times)
+    flops = 3 * bench.FORWARD_FLOPS_PER_IMAGE[name] * batch / step_s
+    peak = bench.peak_bf16_flops(torch.cuda.get_device_name(0))
+    out = dict(step_ms=step_s * 1e3, images_per_s=batch / step_s,
+               model_tflops=flops / 1e12,
+               mfu_pct=None if peak is None else 100 * flops / peak,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[resnet] {name} bf16, {n_params / 1e6:.2f} M parameters, batch "
+        f"{batch} x 224 x 224: losses {[round(x, 4) for x in losses]}; "
+        f"warm-up step {warm_s:.3f} s; {n_fwd} convolutions forward and "
+        f"{n_bwd} backward, every tensor channels_last")
+    log_profile(name, profile_steps(step))
+    return out
+
+
+def profile_steps(step, steps=3, top=8):
+    """Where a step's time goes: ``torch.profiler`` over ``steps`` calls of
+    ``step()``. Returns the host seconds of the window, the share of it in
+    which the device ran a kernel (union of kernel intervals), and the
+    ``top`` operators by the device time of the kernels they launched
+    themselves, each with its share of all kernel time and its calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    assert spans, "the profiler saw no device activity"
+    busy, end = 0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    ops = [(a.key, a.self_device_time_total, a.count)
+           for a in prof.key_averages()
+           if a.device_type == DeviceType.CPU and a.self_device_time_total]
+    total = sum(us for _, us, _ in ops)
+    ranked = sorted(ops, key=lambda o: -o[1])[:top]
+    return dict(wall_s=wall_s, busy_share=busy * 1e-6 / wall_s,
+                top=[(key, us / total, n) for key, us, n in ranked])
+
+
+def log_profile(what, prof):
+    top = "; ".join(f"{k} {100 * s:.1f}% ({n})" for k, s, n in prof["top"])
+    log(f"[profile] {what}: 3 steps in {prof['wall_s']:.3f} s, device busy "
+        f"{100 * prof['busy_share']:.1f}% of it; operators by the device "
+        f"time of their own kernels (share of all kernel time, calls): {top}")
+
+
+def bench_phase(timeout_s=BENCH_TIMEOUT_S):
+    """Phase 13: the port's bench in a subprocess, as a user runs it.
+    Returns its headline and its transformer section's progress line."""
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.bench"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout_s)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[bench] {line}")
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-4000:])
+    head = json.loads(lines[-1])
+    sections = {d["metric"]: d for d in map(json.loads, lines[:-1])
+                if d.get("unit") == "progress"}
+    ex = head["extras"]
+    assert head["backend_available"] is True, head
+    assert head["probe_failed"] is False, head
+    for value in (head["value"], head["mfu_pct"],
+                  ex["resnet18_images_per_sec"],
+                  ex["transformer_tokens_per_sec"],
+                  ex["transformer_mfu_pct"]):
+        assert value is not None and value > 0, head
+    assert set(head["errors"]) == {"ppo"}, (head["errors"],
+                                           proc.stderr[-4000:])
+    return head, sections["section_transformer"]
 
 
 def main() -> int:
@@ -673,7 +896,7 @@ def main() -> int:
     # 8. f32 training through the kernels against dense attention
     train_parity_phase(device)
 
-    # 9. the training path (the main path of this slice; launches counted)
+    # 9. the training path (the kernels line's launches are counted here)
     trained = train_phase(fa, device)
     log(f"[times] {card}: bf16 training step {trained['step_ms']:.3f} ms "
         f"(median of {TRAIN_STEPS}), {trained['tokens_per_s']:.0f} tokens/s,"
@@ -696,6 +919,34 @@ def main() -> int:
         f"{bwd['library_ms']:.4f} ms; per training step {2 * n} forward + "
         f"{n} dq + {n} dkv launches = {100 * share:.1f}% of the "
         f"{step_ms:.3f} ms step: {split}")
+
+    # 11. ResNet, card against CPU in f32 (TF32 is off above)
+    resnet_parity_phase(device)
+
+    # 12. ResNet training at full width (the image path; no flash kernel)
+    torch.backends.cudnn.benchmark = True   # the bench's setting
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    for name, batch in RESNET_TRAIN:
+        r = resnet_train_phase(device, name, batch)
+        mfu = "not known" if r["mfu_pct"] is None else f"{r['mfu_pct']:.2f}%"
+        log(f"[times] {card}: {name} bf16 training step {r['step_ms']:.3f} "
+            f"ms (median of {RESNET_STEPS}), {r['images_per_s']:.1f} "
+            f"images/s, {r['model_tflops']:.1f} model TFLOP/s, MFU {mfu}, "
+            f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    assert launch_counts(fa) == (0, 0, 0), launch_counts(fa)
+    torch.cuda.empty_cache()    # the bench's process needs the memory
+
+    # 13. the port's bench, as a user runs it
+    from ray_tpu_torch import bench
+    head, lm = bench_phase()
+    per_step = (2 * n, n, n)
+    got = tuple(lm["launches"][k] for k in ("fwd", "dq", "dkv"))
+    assert got == tuple(lm["steps_run"] * c for c in per_step), (got, lm)
+    log(f"[bench] {card}: transformer section {lm['step_ms']:.3f} ms a step "
+        f"(median of {lm['runs']} runs of {bench.TRANSFORMER_STEPS}), phase "
+        f"9 {step_ms:.3f} ms; launches (forward, dq, dkv) {got} in "
+        f"{lm['steps_run']} steps")
+    log(json.dumps(head))
 
     fwd_launches, dq_launches, dkv_launches = trained["launches"]
     log(json.dumps({"kernels": [{

@@ -39,6 +39,17 @@ def adamw(lr: float = 3e-4, weight_decay: float = 0.01) -> OptimizerFactory:
     return make
 
 
+def sgd(lr: float, momentum: float = 0.0) -> OptimizerFactory:
+    """``optax.sgd(lr, momentum=...)`` as a torch optimizer factory: the
+    trace ``t = g + momentum * t`` from ``t = 0`` and ``p -= lr * t``, which
+    is ``torch.optim.SGD`` with dampening 0 and no Nesterov (its first step
+    sets ``t = g``, the same value)."""
+    def make(params: List[torch.Tensor]) -> torch.optim.Optimizer:
+        return torch.optim.SGD(params, lr=lr, momentum=momentum,
+                               dampening=0.0, nesterov=False)
+    return make
+
+
 def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
                        rules: Any = None,
                        optimizer: Optional[OptimizerFactory] = None,
