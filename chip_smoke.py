@@ -57,7 +57,18 @@ Phases, each of which asserts:
 13. bench: ``python3 -m ray_tpu_torch.bench`` as a user runs it, in a
    subprocess; it exits 0, its headline has every device figure and no
    error but ``ppo``'s, and its transformer section launched the three
-   kernels 2 x n_layers / n_layers / n_layers times a step.
+   kernels 2 x n_layers / n_layers / n_layers times a step;
+14. sharded step (``ray_tpu_torch.parallel``): (a) ``dryrun_multichip`` over
+   every card of the machine on NCCL, one rank per card; (b) in this
+   process, an NCCL world of one rank and a mesh whose every axis is 1: 3 f32
+   steps of the sharded ``make_lm_train_step`` at phase 8's width, batch
+   and weights follow phase 8's one-device trajectory through the kernels
+   (loss and grad norm at ``TRAIN_RTOL``); (c) phase 9's bf16 training
+   (same width, depth, batch and weights) through the sharded step: 1
+   warm-up and 5 measured steps, losses finite and falling, 2 x n_layers /
+   n_layers / n_layers kernel launches a step, and the step time beside
+   phase 9's (the cost of the DTensor path at world size 1); (d) the
+   one-device and the sharded step timed in turns in this process.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -78,6 +89,7 @@ import json
 import math
 import pathlib
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -113,6 +125,7 @@ PARITY_STEPS = 3
 TRAIN_RTOL = 1e-4
 TRAIN_BATCH = (8, 1025)
 TRAIN_STEPS = 5      # measured, after one warm-up step
+STEP_PAIRS = 5       # phase 14 (d): rounds of the two step paths in turns
 # ResNet: phase 11 (f32 parity, card vs CPU) and phase 12 (bf16 training).
 RESNET_PARITY_SIDES = (64, 37)
 RESNET_PARITY_BATCH = 4
@@ -492,11 +505,12 @@ def check_backward(fa, device) -> None:
         f"the tolerance): {_fmt_worst(worst)}")
 
 
-def train_trajectory(cfg, params, tokens, steps, device):
-    """(loss, grad_norm) of ``steps`` steps of ``make_lm_train_step`` from
-    a copy of ``params`` on one batch."""
+def train_trajectory(cfg, params, tokens, steps, device, mesh=None):
+    """(loss, grad_norm) of ``steps`` steps of ``make_lm_train_step`` (over
+    ``mesh`` when given) from a copy of ``params`` on one batch."""
     from ray_tpu_torch.train import make_lm_train_step
-    init_fn, step_fn, shard_batch = make_lm_train_step(cfg, device=device)
+    init_fn, step_fn, shard_batch = make_lm_train_step(cfg, mesh,
+                                                       device=device)
     state = init_fn(params=params)
     batch = shard_batch(tokens)
     out = []
@@ -506,18 +520,26 @@ def train_trajectory(cfg, params, tokens, steps, device):
     return out
 
 
-def train_parity_phase(device, width=PARITY_WIDTH, batch=PARITY_BATCH,
-                       steps=PARITY_STEPS):
-    """Phase 8: f32 steps through the kernels against dense attention (TF32
-    off), from the same weights on the same batch."""
+def parity_inputs(device, width=PARITY_WIDTH, batch=PARITY_BATCH):
+    """Phase 8's f32 flash config, weights and token batch."""
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.models.transformer import TransformerConfig
     tokens = np.random.default_rng(SEED + 3).integers(
         0, width["vocab_size"], size=batch)
     flash = TransformerConfig(**width, dtype=torch.float32, use_flash=True)
-    dense = TransformerConfig(**width, dtype=torch.float32, use_flash=False)
     params = transformer.init_params(
         flash, torch.Generator(device=device).manual_seed(SEED + 3), device)
+    return flash, params, tokens
+
+
+def train_parity_phase(device, width=PARITY_WIDTH, batch=PARITY_BATCH,
+                       steps=PARITY_STEPS):
+    """Phase 8: f32 steps through the kernels against dense attention (TF32
+    off), from the same weights on the same batch. Returns the trajectory
+    through the kernels."""
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    flash, params, tokens = parity_inputs(device, width, batch)
+    dense = TransformerConfig(**width, dtype=torch.float32, use_flash=False)
     got = train_trajectory(flash, params, tokens, steps, device)
     want = train_trajectory(dense, params, tokens, steps, device)
     np.testing.assert_allclose(got, want, rtol=TRAIN_RTOL)
@@ -525,6 +547,7 @@ def train_parity_phase(device, width=PARITY_WIDTH, batch=PARITY_BATCH,
         f"{width['d_model']}, batch {batch[0]} x {batch[1]}: (loss, grad "
         f"norm) through the kernels {got} vs dense attention {want}, "
         f"rtol {TRAIN_RTOL}")
+    return got
 
 
 def launch_counts(fa):
@@ -532,8 +555,9 @@ def launch_counts(fa):
 
 
 def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
-                steps=TRAIN_STEPS):
-    """Phase 9, the training path: bf16 steps at full depth with remat."""
+                steps=TRAIN_STEPS, mesh=None, profile=True):
+    """Phase 9, the training path: bf16 steps at full depth with remat
+    (phase 14 (c): the same through the sharded step over ``mesh``)."""
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.models.transformer import TransformerConfig
     from ray_tpu_torch.train import make_lm_train_step
@@ -541,7 +565,8 @@ def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
     assert cfg.remat
     n = cfg.n_layers
     per_step = (2 * n, n, n)  # remat recomputes each block's forward
-    init_fn, step_fn, shard_batch = make_lm_train_step(cfg, device=device)
+    init_fn, step_fn, shard_batch = make_lm_train_step(cfg, mesh,
+                                                       device=device)
     state = init_fn(torch.Generator(device=device).manual_seed(SEED))
     n_params = transformer.num_params(state[0])
     tokens = shard_batch(np.random.default_rng(SEED + 4).integers(
@@ -580,13 +605,103 @@ def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
                # 4 backward), remat's recompute not counted.
                model_tflops=6.0 * n_params * n_tokens / step_s / 1e12,
                peak_bytes=torch.cuda.max_memory_allocated(), n_layers=n)
-    log(f"[train] bf16, {n_params / 1e6:.1f} M parameters, {n} layers, remat,"
-        f" batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
+    where = "" if mesh is None else f" (sharded, mesh {mesh.shape})"
+    log(f"[train] bf16{where}, {n_params / 1e6:.1f} M parameters, {n} layers,"
+        f" remat, batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
         f"{norms}; warm-up step {warm_s:.3f} s; launches a step "
         f"{per_step} (forward, dq, dkv); {launches} in {steps} steps")
-    log_profile("transformer training step",
-                profile_steps(lambda: step_fn(state, tokens)))
+    if profile:
+        log_profile("transformer training step",
+                    profile_steps(lambda: step_fn(state, tokens)))
     return out
+
+
+def sharded_phase(fa, device, parity_want, phase9_ms):
+    """Phase 14: the sharded step. (a) ``dryrun_multichip`` on every card;
+    (b) f32 parity with phase 8 and (c) phase 9's bf16 training, both
+    through ``make_lm_train_step`` over a mesh of one rank in this
+    process. Returns (c)'s results."""
+    import torch.distributed as dist
+    from ray_tpu_torch.entry import dryrun_multichip
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    t0 = time.perf_counter()
+    out = dryrun_multichip(n_cards, device=device)
+    log(f"[sharded] (a) dryrun_multichip({n_cards}) over "
+        f"{'NCCL' if device.type == 'cuda' else 'gloo'} in "
+        f"{time.perf_counter() - t0:.1f} s: losses {out}")
+    assert out and all(np.isfinite(v) for v in out.values()), out
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+        **({"device_id": torch.device("cuda", torch.cuda.current_device())}
+           if device.type == "cuda" else {}))
+    try:
+        mesh = build_mesh(MeshConfig(data=1), device)
+        assert set(mesh.shape.values()) == {1}, mesh.shape
+        # (b) f32 through the kernels, against phase 8's one-device run.
+        flash, params, tokens = parity_inputs(device)
+        got = train_trajectory(flash, params, tokens, PARITY_STEPS, device,
+                               mesh=mesh)
+        np.testing.assert_allclose(got, parity_want, rtol=TRAIN_RTOL)
+        log(f"[sharded] (b) f32 parity over mesh {mesh.shape}: (loss, grad "
+            f"norm) {got} vs phase 8's one-device {parity_want}, rtol "
+            f"{TRAIN_RTOL}")
+        del params
+        # (c) bf16 at full width, phase 9's weights and batch.
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        res = train_phase(fa, device, mesh=mesh, profile=False)
+        log(f"[sharded] (c) bf16 sharded step {res['step_ms']:.3f} ms "
+            f"(median of {TRAIN_STEPS}) against phase 9's {phase9_ms:.3f} ms "
+            f"in this run; {res['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{res['peak_bytes'] / 2**30:.2f} GiB; launches "
+            f"{res['launches']}")
+        res["paired"] = paired_step_times(device, mesh)
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def paired_step_times(device, mesh, width=SERVE_WIDTH, batch=TRAIN_BATCH,
+                      rounds=STEP_PAIRS):
+    """Phase 14 (d): the one-device and the sharded bf16 step (phase 9's
+    model, weights and batch) timed in turns, one-device, sharded, sharded,
+    one-device in each round, after one warm-up step each, so that the
+    host's drift falls on both. Returns each path's step times (ms)."""
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.train import make_lm_train_step
+    cfg = TransformerConfig(**width, dtype=torch.bfloat16, use_flash=True)
+    tokens = np.random.default_rng(SEED + 4).integers(
+        0, width["vocab_size"], size=batch)
+    paths = {}
+    for name, m in (("one-device", None), ("sharded", mesh)):
+        init_fn, step_fn, shard_batch = make_lm_train_step(cfg, m,
+                                                           device=device)
+        state = init_fn(torch.Generator(device=device).manual_seed(SEED))
+        paths[name] = [step_fn, state, shard_batch(tokens)]
+    times = {name: [] for name in paths}
+    order = ["one-device", "sharded"] + ["one-device", "sharded", "sharded",
+                                         "one-device"] * rounds
+    for i, name in enumerate(order):
+        step_fn, state, batch_ = paths[name]
+        t0 = time.perf_counter()
+        paths[name][1], metrics = step_fn(state, batch_)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        if i >= 2:                               # the first two warm up
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[sharded] (d) bf16 step in turns, {rounds} rounds of one-device, "
+        f"sharded, sharded, one-device: median one-device "
+        f"{med['one-device']:.3f} ms, sharded {med['sharded']:.3f} ms; all "
+        f"(ms): " + "; ".join(f"{k} " + ", ".join(f"{t:.1f}" for t in v)
+                              for k, v in times.items()))
+    return times
 
 
 def backward_times(fa, device, B, L, H, D, dt):
@@ -894,7 +1009,7 @@ def main() -> int:
     check_backward(fa, device)
 
     # 8. f32 training through the kernels against dense attention
-    train_parity_phase(device)
+    parity = train_parity_phase(device)
 
     # 9. the training path (the kernels line's launches are counted here)
     trained = train_phase(fa, device)
@@ -947,6 +1062,16 @@ def main() -> int:
         f"9 {step_ms:.3f} ms; launches (forward, dq, dkv) {got} in "
         f"{lm['steps_run']} steps")
     log(json.dumps(head))
+
+    # 14. the sharded step: dry run on every card, then a world of one
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(fa, device, parity, step_ms)
+    paired = {k: statistics.median(v) for k, v in sharded["paired"].items()}
+    log(f"[times] {card}: bf16 training step, sharded path (world size 1) "
+        f"{sharded['step_ms']:.3f} ms, one-device path (phase 9) "
+        f"{step_ms:.3f} ms; in turns (median of {2 * STEP_PAIRS} each): "
+        f"sharded {paired['sharded']:.3f} ms, one-device "
+        f"{paired['one-device']:.3f} ms")
 
     fwd_launches, dq_launches, dkv_launches = trained["launches"]
     log(json.dumps({"kernels": [{

@@ -74,4 +74,18 @@ class TorchPredictor(Predictor):
     def _predict(self, data):
         with torch.inference_mode():
             out = self._apply(self.params, _to_device(data, self.device))
-            return out.cpu().numpy()
+            return _to_numpy(out.cpu())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``np.asarray`` of a JAX array, for a torch tensor. numpy has no
+    bfloat16: a bf16 tensor's bits come back as ``ml_dtypes.bfloat16`` (what
+    JAX returns) where ``ml_dtypes`` imports, and as float32 otherwise (the
+    same values, exactly)."""
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)

@@ -22,8 +22,19 @@ f32 value always gives the same bf16 value.
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per block
 when a gradient is being recorded: each block's activations are recomputed
 in the backward, so its attention forward runs twice per training step.
-Ring attention over a ``seq`` mesh axis waits for
-``ray_tpu_torch.parallel``.
+
+With ``mesh`` (a ``ray_tpu_torch.parallel.Mesh``), ``backbone``, ``apply``
+and ``loss_fn`` are per-rank bodies, as inside the reference's
+``shard_map``s (``train.make_lm_train_step`` calls them so): ``params`` are
+this rank's compute views and ``tokens`` its batch block at full length.
+- ``seq`` > 1: each rank computes its ``L / seq`` chunk of the sequence
+  (RoPE positions offset to the chunk), and attention is
+  ``parallel.ring_attention`` over the chunks (the reference's switch);
+  ``apply`` returns the chunk's logits and ``loss_fn`` the chunk's mean.
+- heads (and the SwiGLU hidden dim) split over ``tensor``: a block's
+  weights hold this rank's heads and hidden columns, and the two output
+  projections end in a ``psum`` over ``tensor`` (Megatron's row-parallel
+  layers), so the block's result is whole on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.parallel.sequence import ring_attention
+from ray_tpu_torch.parallel.spmd import psum
 
 Params = Dict[str, Any]
 
@@ -101,6 +114,33 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
         },
         "ln_f": (d,),
         "lm_head": (d, cfg.vocab_size),
+    }
+
+
+def logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Logical-axis tree mirroring ``init_params`` output (leaves = tuples
+    of logical names consumed by ``ShardingRules``). The leading "layers" dim
+    of the stacked blocks maps to the pipeline axis when pipe > 1."""
+    blk = {
+        "attn": {
+            "wq": ("layers", "embed", "heads", "kv"),
+            "wk": ("layers", "embed", "heads", "kv"),
+            "wv": ("layers", "embed", "heads", "kv"),
+            "wo": ("layers", "heads", "kv", "embed"),
+        },
+        "mlp": {
+            "wi": ("layers", "embed", "mlp"),
+            "wg": ("layers", "embed", "mlp"),
+            "wo": ("layers", "mlp", "embed"),
+        },
+        "ln1": ("layers", None),
+        "ln2": ("layers", None),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": blk,
+        "ln_f": (None,),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -179,7 +219,9 @@ def _rope(x: torch.Tensor, theta: float, positions: torch.Tensor
     return rotated.to(x.dtype)
 
 
-def _attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
+def _attention(q, k, v, cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    if mesh is not None and "seq" in mesh.axis_names and mesh.shape["seq"] > 1:
+        return ring_attention(q, k, v, mesh, causal=True)
     if cfg.use_flash:
         return flash_attention(q, k, v, causal=True)
     D = q.shape[-1]
@@ -192,45 +234,85 @@ def _attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
 
 
 def _block(params: Params, x: torch.Tensor, positions: torch.Tensor,
-           cfg: TransformerConfig) -> torch.Tensor:
+           cfg: TransformerConfig, mesh=None) -> torch.Tensor:
     B, L, d = x.shape
-    dt = x.dtype
+    dt, hd = x.dtype, cfg.head_dim
     attn_p, mlp_p = params["attn"], params["mlp"]
     h = _rmsnorm(x, params["ln1"])
-    q = (h @ attn_p["wq"].to(dt).reshape(d, -1)).view(B, L, cfg.n_heads, -1)
-    k = (h @ attn_p["wk"].to(dt).reshape(d, -1)).view(B, L, cfg.kv_heads, -1)
-    v = (h @ attn_p["wv"].to(dt).reshape(d, -1)).view(B, L, cfg.kv_heads, -1)
+    # -1 heads: this rank's heads when they are split over ``tensor``.
+    q = (h @ attn_p["wq"].to(dt).reshape(d, -1)).view(B, L, -1, hd)
+    k = (h @ attn_p["wk"].to(dt).reshape(d, -1)).view(B, L, -1, hd)
+    v = (h @ attn_p["wv"].to(dt).reshape(d, -1)).view(B, L, -1, hd)
     q = _rope(q, cfg.rope_theta, positions)
     k = _rope(k, cfg.rope_theta, positions)
     if cfg.kv_heads != cfg.n_heads:  # GQA: jnp.repeat, i.e. interleaved
         rep = cfg.n_heads // cfg.kv_heads
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    attn = _attention(q, k, v, cfg)
-    x = x + attn.reshape(B, L, -1) @ attn_p["wo"].to(dt).reshape(-1, d)
+    attn = _attention(q, k, v, cfg, mesh)
+    out = attn.reshape(B, L, -1) @ attn_p["wo"].to(dt).reshape(-1, d)
+    if q.shape[2] != cfg.n_heads:   # heads split over tensor: partial sums
+        out = psum(out, mesh, "tensor")
+    x = x + out
     h = _rmsnorm(x, params["ln2"])
     gate = h @ mlp_p["wi"].to(dt)
     up = h @ mlp_p["wg"].to(dt)
-    return x + (F.silu(gate) * up) @ mlp_p["wo"].to(dt)
+    out = (F.silu(gate) * up) @ mlp_p["wo"].to(dt)
+    if gate.shape[-1] != cfg.ff_dim:   # hidden split over tensor
+        out = psum(out, mesh, "tensor")
+    return x + out
+
+
+def seq_chunk(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's chunk of dim 1 (the sequence) when ``seq`` > 1."""
+    if mesh is None or mesh.shape.get("seq", 1) == 1:
+        return x
+    n = mesh.shape["seq"]
+    if x.shape[1] % n:
+        raise ValueError(f"sequence of {x.shape[1]} does not split over "
+                         f"seq={n}")
+    return x.chunk(n, dim=1)[mesh.axis_index("seq")]
+
+
+def positions_for(B: int, L: int, mesh, device) -> torch.Tensor:
+    """RoPE positions ``[B, L]`` of this rank's chunk of ``L`` tokens."""
+    start = 0
+    if mesh is not None and mesh.shape.get("seq", 1) > 1:
+        start = mesh.axis_index("seq") * L
+    return torch.arange(start, start + L, device=device)[None].expand(B, L)
+
+
+def embed(params: Params, tokens: torch.Tensor,
+          cfg: TransformerConfig) -> torch.Tensor:
+    return params["embed"].to(cfg.dtype)[tokens.long()]
 
 
 def backbone(params: Params, tokens: torch.Tensor,
-             cfg: TransformerConfig) -> torch.Tensor:
-    """Embedding + all transformer blocks; returns pre-final-norm states."""
+             cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """Embedding + all transformer blocks; returns pre-final-norm states
+    (of this rank's sequence chunk, with a mesh)."""
+    tokens = seq_chunk(tokens, mesh)
     B, L = tokens.shape
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
-    positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
+    x = embed(params, tokens, cfg)
+    positions = positions_for(B, L, mesh, tokens.device)
+    return run_blocks(params["blocks"], x, positions, cfg, mesh)
+
+
+def run_blocks(blocks: Params, x: torch.Tensor, positions: torch.Tensor,
+               cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """``x`` through the stacked ``blocks`` (however many layers they hold:
+    all of them, or a pipeline stage's), each under remat when set."""
     # One unbind per stacked leaf: its backward stacks the layers' grads
     # once, where indexing would scatter each layer into a full-size zero.
-    blocks = _tree_map(lambda t: t.unbind(0), params["blocks"])
+    blocks = _tree_map(lambda t: t.unbind(0), blocks)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
+    for i in range(len(blocks["ln1"])):
         layer = _tree_map(lambda t: t[i], blocks)
         if remat:
-            x = checkpoint(_block, layer, x, positions, cfg,
+            x = checkpoint(_block, layer, x, positions, cfg, mesh,
                            use_reentrant=False)
         else:
-            x = _block(layer, x, positions, cfg)
+            x = _block(layer, x, positions, cfg, mesh)
     return x
 
 
@@ -242,9 +324,10 @@ def head(params: Params, x: torch.Tensor,
 
 
 def apply(params: Params, tokens: torch.Tensor,
-          cfg: TransformerConfig) -> torch.Tensor:
-    """tokens: [B, L] integer -> logits [B, L, vocab] (float32)."""
-    return head(params, backbone(params, tokens, cfg), cfg)
+          cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """tokens: [B, L] integer -> logits [B, L, vocab] (float32); with a
+    ``seq`` axis, the logits of this rank's chunk."""
+    return head(params, backbone(params, tokens, cfg, mesh), cfg)
 
 
 def head_and_loss(params: Params, x: torch.Tensor, targets: torch.Tensor,
@@ -257,11 +340,12 @@ def head_and_loss(params: Params, x: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params: Params, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, mesh=None) -> torch.Tensor:
     """Next-token cross entropy: tokens ``[B, L+1]`` serve as their own
-    labels (``tokens[:, 1:]`` given ``tokens[:, :-1]``)."""
-    x = backbone(params, tokens[:, :-1], cfg)
-    return head_and_loss(params, x, tokens[:, 1:], cfg)
+    labels (``tokens[:, 1:]`` given ``tokens[:, :-1]``); with a ``seq``
+    axis, the mean over this rank's chunk."""
+    x = backbone(params, tokens[:, :-1], cfg, mesh)
+    return head_and_loss(params, x, seq_chunk(tokens[:, 1:], mesh), cfg)
 
 
 def leaves(params: Params):

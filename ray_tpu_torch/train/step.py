@@ -1,12 +1,11 @@
-"""The training step of the flagship transformer, on one device.
+"""The training step of the flagship transformer: on one device, or sharded
+over a ``parallel`` mesh.
 
 Port of ``ray_tpu/train/step.py:make_lm_train_step``. It keeps the
 contract: ``(init_fn, step_fn, shard_batch)``, with
 ``step_fn(state, tokens) -> (state, {"loss", "grad_norm"})`` and
 ``state = (params, opt_state)``. What differs from the JAX step:
 
-- one device only: the ``mesh``, ``rules`` and ``num_microbatches``
-  arguments wait for ``ray_tpu_torch.parallel`` and raise if given;
 - ``init_fn`` takes a ``torch.Generator`` in place of a PRNG key, or the
   weights to start from (``params=``, e.g. from ``params_from_numpy``);
 - ``opt_state`` is the ``torch.optim.Optimizer`` over the parameter
@@ -14,17 +13,46 @@ contract: ``(init_fn, step_fn, shard_batch)``, with
   the same state: the counterpart of ``donate_argnums=(0,)``;
 - no ``jit``: PyTorch runs eagerly. ``goodput.instrument_jit`` waits for
   the port of ``observability/``.
+
+With a mesh, the state is sharded: every parameter, its gradient and its
+AdamW moments are DTensors placed by ``transformer.logical_axes`` and the
+rules (``pipe`` > 1 maps the stacked "layers" dim to ``pipe``). The step
+is one per-rank body, as the reference's ``jit`` of a ``shard_map``-ed
+loss would be:
+- each parameter is redistributed to its compute view, gathered over every
+  mesh dim but two: a block weight keeps its ``tensor`` shard (heads and
+  SwiGLU columns; Megatron-style, ``transformer._block``) when ``pipe`` is
+  1, and its ``pipe`` shard (its stage's layers). The embedding and the
+  head are gathered whole (an embedding gather and a vocab-sharded
+  softmax are not split here). The view's backward reduces the gradient
+  back to the parameter's placements (all-reduce or reduce-scatter);
+- the batch is sharded over ``data`` and ``fsdp``, the sequence over
+  ``seq`` (ring attention); ``pipe`` > 1 runs the blocks under
+  ``pipeline_apply`` on the ``data`` block of the batch (gathered over
+  ``fsdp``), unsharded over ``tensor``, with embed and head on every
+  stage, as the reference's ``in_specs`` have it;
+- each rank differentiates its local mean loss divided by the number of
+  ranks, so the reduced gradients are those of the global-batch mean; the
+  reported ``loss`` is that mean, and ``grad_norm`` the norm of the whole
+  gradient (a replicated element counted once).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.parallel import (ShardingRules, batch_sharding,
+                                    pipeline_apply, shard_pytree)
+from ray_tpu_torch.parallel.sharding import place_local
+from ray_tpu_torch.parallel.spmd import all_gather, partial_grads
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -51,27 +79,28 @@ def sgd(lr: float, momentum: float = 0.0) -> OptimizerFactory:
 
 
 def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
-                       rules: Any = None,
+                       rules: Optional[ShardingRules] = None,
                        optimizer: Optional[OptimizerFactory] = None,
-                       num_microbatches: Optional[int] = None,
+                       num_microbatches: int = 4,
                        device: DeviceLike = None):
     """Build ``(init_fn, step_fn, shard_batch)`` for language-model training
-    on ``device`` (default ``cuda``).
+    on ``device`` (default ``cuda``), sharded over ``mesh`` when one is
+    given (see the module note).
 
     ``optimizer`` builds a torch optimizer from the list of parameter
     leaves; the default is ``adamw()``, the JAX step's
-    ``optax.adamw(3e-4, weight_decay=0.01)``.
+    ``optax.adamw(3e-4, weight_decay=0.01)``. ``num_microbatches`` is the
+    pipeline's, used when ``mesh.shape["pipe"] > 1``.
     """
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "sharded training (mesh, rules) waits for ray_tpu_torch.parallel;"
-            " this step runs on one device")
-    if num_microbatches is not None:
-        raise NotImplementedError(
-            "pipeline microbatches wait for ray_tpu_torch.parallel; this "
-            "step runs on one device")
+    if mesh is None and rules is not None:
+        raise ValueError("sharding rules need a mesh")
+    if num_microbatches < 1:
+        raise ValueError(f"num_microbatches must be >= 1, got "
+                         f"{num_microbatches}")
     device = resolve_device(device)
     make_optimizer = optimizer or adamw()
+    sharded = None if mesh is None else _Sharded(cfg, mesh, rules,
+                                                 num_microbatches, device)
 
     def init_fn(key: Optional[torch.Generator] = None, *,
                 params: Optional[transformer.Params] = None
@@ -90,20 +119,37 @@ def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
             params = transformer._tree_map(
                 lambda t: t.detach().to(device, torch.float32, copy=True),
                 params)
+        if sharded is not None:
+            params = sharded.place(params)
         leaves = transformer.leaves(params)
         for t in leaves:
             t.requires_grad_(True)
+        if sharded is not None:
+            # The optimizer steps each rank's shards in place (views of the
+            # DTensors' local tensors), so its moments are the local shards
+            # of moments placed like their parameters. AdamW is elementwise:
+            # run on DTensors it would only add DTensor's per-op dispatch.
+            with torch.no_grad():
+                leaves = [t.to_local() for t in leaves]
         return params, make_optimizer(leaves)
 
     def step_fn(state, tokens: torch.Tensor
                 ) -> Tuple[Any, Dict[str, torch.Tensor]]:
         params, opt = state
         leaves = transformer.leaves(params)
-        loss = transformer.loss_fn(params, tokens, cfg)
-        grads = torch.autograd.grad(loss, leaves)
+        if sharded is None:
+            loss = transformer.loss_fn(params, tokens, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                # optax.global_norm: the L2 norm over every leaf of the raw
+                # grads.
+                grad_norm = torch.sqrt(sum(g.square().sum() for g in grads))
+        else:
+            loss, grads, grad_norm = sharded.loss_and_grads(params, tokens)
+            # The optimizer holds the local shards (init_fn).
+            leaves = [p for group in opt.param_groups for p in group["params"]]
+            grads = [g.to_local() for g in grads]
         with torch.no_grad():
-            # optax.global_norm: the L2 norm over every leaf of the raw grads.
-            grad_norm = torch.sqrt(sum(g.square().sum() for g in grads))
             for p, g in zip(leaves, grads):
                 p.grad = g
             opt.step()
@@ -112,7 +158,117 @@ def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
         return (params, opt), {"loss": loss.detach(), "grad_norm": grad_norm}
 
     def shard_batch(tokens) -> torch.Tensor:
-        """Place a token batch (numpy or tensor) on the step's device."""
-        return torch.as_tensor(tokens).to(device)
+        """Place a token batch (numpy or tensor) on the step's device; with
+        a mesh, as a DTensor sharded over ``data`` and ``fsdp``."""
+        tokens = torch.as_tensor(tokens).to(device)
+        if sharded is None:
+            return tokens
+        return place_local(tokens, mesh,
+                           batch_sharding(mesh, sharded.rules, ndim=2))
 
     return init_fn, step_fn, shard_batch
+
+
+class _Sharded:
+    """The mesh half of ``make_lm_train_step``: placement, compute views,
+    the per-rank loss and the reductions (module note)."""
+
+    def __init__(self, cfg: TransformerConfig, mesh, rules, num_microbatches,
+                 device: torch.device):
+        if device.type != mesh.device_type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the step "
+                             f"on {device}")
+        self.cfg, self.mesh, self.device = cfg, mesh, device
+        self.num_microbatches = num_microbatches
+        self.rules = rules or ShardingRules()
+        self.pipe = mesh.shape.get("pipe", 1)
+        if self.pipe > 1:
+            if cfg.n_layers % self.pipe != 0:
+                raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                                 f"pipe={self.pipe}")
+            # Stage-shard the stacked layer dim so each stage holds only
+            # its layers' params.
+            self.rules = self.rules.with_overrides(layers="pipe")
+        tensor = mesh.shape.get("tensor", 1)
+        # Heads and SwiGLU columns split over tensor outside the pipeline;
+        # inside it the blocks run unsharded over tensor (reference
+        # pipeline.py's in_specs).
+        self.tensor_parallel = tensor > 1 and self.pipe == 1
+        if self.tensor_parallel and (cfg.n_heads % tensor or
+                                     cfg.kv_heads % tensor or
+                                     cfg.ff_dim % tensor):
+            raise ValueError(f"heads {cfg.n_heads}, kv heads {cfg.kv_heads} "
+                             f"and d_ff {cfg.ff_dim} must split over "
+                             f"tensor={tensor}")
+        self.axes = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+
+    def place(self, params):
+        return shard_pytree(params, transformer.logical_axes(self.cfg),
+                            self.mesh, self.rules)
+
+    def _view(self, p: DTensor, block: bool) -> torch.Tensor:
+        """The compute view of a parameter, whose backward reduces the
+        local gradient back to the parameter's placements."""
+        kept = ("pipe", "tensor") if self.tensor_parallel else ("pipe",)
+        target = [pl if block and isinstance(pl, Shard) and a in kept
+                  else Replicate()
+                  for a, pl in zip(self.mesh.axis_names, p.placements)]
+        return p.redistribute(self.mesh.device_mesh, target).to_local(
+            grad_placements=partial_grads(target, self.mesh.device_mesh))
+
+    def _local_loss(self, views, tokens: torch.Tensor) -> torch.Tensor:
+        cfg, mesh = self.cfg, self.mesh
+        if self.pipe == 1:
+            return transformer.loss_fn(views, tokens, cfg, mesh)
+        # Pipeline path: embed -> pipelined blocks -> head, on the data
+        # block of the batch (the stages see it whole over fsdp).
+        with torch.no_grad():
+            tokens = all_gather(tokens, mesh, "fsdp", dim=0)
+        inputs = transformer.seq_chunk(tokens[:, :-1], mesh)
+        targets = transformer.seq_chunk(tokens[:, 1:], mesh)
+        x = transformer.embed(views, inputs, cfg)
+        L = x.shape[1]
+
+        def stage_fn(stage_params, h):
+            positions = transformer.positions_for(h.shape[0], L, mesh,
+                                                  h.device)
+            return transformer.run_blocks(stage_params, h, positions, cfg,
+                                          mesh)
+
+        # blocks: this stage's [n_layers / pipe, ...] -> [1, ...] stage dim
+        stage_params = transformer._tree_map(lambda t: t[None],
+                                             views["blocks"])
+        x = pipeline_apply(stage_fn, stage_params, x, mesh,
+                           num_microbatches=self.num_microbatches)
+        return transformer.head_and_loss(views, x, targets, cfg)
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over every rank of the mesh."""
+        for a in self.axes:
+            dist.all_reduce(t, group=self.mesh.group(a))
+        return t
+
+    def views(self, params):
+        """The compute views of a placed parameter tree."""
+        return {k: (transformer._tree_map(lambda p: self._view(p, True), v)
+                    if k == "blocks" else self._view(v, False))
+                for k, v in params.items()}
+
+    def loss_and_grads(self, params, tokens):
+        views = self.views(params)
+        if isinstance(tokens, DTensor):
+            tokens = tokens.to_local()
+        loss = self._local_loss(views, tokens)
+        world = self.mesh.size
+        grads = torch.autograd.grad(loss / world,
+                                    transformer.leaves(params))
+        with torch.no_grad():
+            sq = torch.zeros((), dtype=torch.float32, device=self.device)
+            for g in grads:
+                copies = math.prod(
+                    self.mesh.shape[a] for a, pl in
+                    zip(self.mesh.axis_names, g.placements)
+                    if isinstance(pl, Replicate))
+                sq = sq + g.to_local().float().square().sum() / copies
+            stats = self._reduce(torch.stack([loss.detach() / world, sq]))
+        return stats[0], grads, torch.sqrt(stats[1])

@@ -5,7 +5,9 @@ and carried across with ``params_from_numpy``; tokens come from seeded
 numpy. On the CPU the port's attention runs its plain versions (forward,
 and backward through ``_FlashAttention``) and the JAX flash path runs the
 Pallas kernels in interpret mode. Logits compare at 2e-4, as do the loss
-and its gradients.
+and its gradients. The ``mesh=`` cases run the port's per-rank bodies on 4
+spawned gloo ranks (once for the module) against the JAX model without a
+mesh.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ from ray_tpu.models import transformer as jax_transformer
 from ray_tpu_torch import entry as port_entry
 from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.parallel import run_spmd
 
 TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
             max_seq_len=128)
@@ -203,3 +206,72 @@ def test_entry_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         port_entry.entry()
+
+
+def test_logical_axes_match_jax():
+    jcfg, cfg = _configs()
+    assert transformer.logical_axes(cfg) == jax_transformer.logical_axes(jcfg)
+
+
+# (mesh plan over 4 ranks, use_flash): the ring alone, the ring beside
+# heads split over tensor, and heads split over tensor through the flash
+# attention Function (its plain versions on the CPU).
+MESH_CASES = {"seq4": (dict(data=1, seq=4), False),
+              "seq2-tensor2": (dict(data=1, seq=2, tensor=2), False),
+              "tensor4-flash": (dict(data=1, tensor=4), True)}
+
+
+def _mesh_forward_body(np_params, tokens):
+    """Per rank, each case: the logits of ``apply(..., mesh)`` gathered over
+    the sequence chunks, and ``loss_fn(..., mesh)`` averaged over them."""
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.spmd import all_gather
+    from ray_tpu_torch.train.step import _Sharded
+    out = {}
+    tokens = torch.tensor(tokens)
+    for name, (plan, use_flash) in MESH_CASES.items():
+        mesh = build_mesh(MeshConfig(**plan), "cpu")
+        cfg = TransformerConfig(**TINY, dtype=torch.float32,
+                                use_flash=use_flash)
+        sharded = _Sharded(cfg, mesh, None, 4, torch.device("cpu"))
+        views = sharded.views(sharded.place(
+            transformer.params_from_numpy(np_params, cfg, "cpu")))
+        with torch.no_grad():
+            logits = transformer.apply(views, tokens[:, :-1], cfg, mesh)
+            loss = transformer.loss_fn(views, tokens, cfg, mesh)
+            loss = all_gather(loss[None], mesh, "seq").mean()
+        out[name] = (all_gather(logits, mesh, "seq", dim=1).numpy(),
+                     loss.item())
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_results():
+    jcfg, _ = _configs()
+    np_params = _jax_params_numpy(jcfg)
+    tokens = _tokens(11, (2, 65))
+    got = run_spmd(_mesh_forward_body, 4, "cpu", 240.0, (np_params, tokens))
+    params = jax.tree.map(jnp.asarray, np_params)
+    want = (np.asarray(jax_transformer.apply(params, tokens[:, :-1], jcfg)),
+            float(jax_transformer.loss_fn(params, jnp.asarray(tokens), jcfg)))
+    return got, want
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_apply_and_loss_with_mesh_match_jax(mesh_results, case):
+    """``apply``/``loss_fn`` with a mesh (sequence chunks through ring
+    attention, heads split over tensor) against the JAX model run whole."""
+    got, (want_logits, want_loss) = mesh_results
+    logits, loss = got[case]
+    np.testing.assert_allclose(logits, want_logits, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(loss, want_loss, rtol=2e-5)
+
+
+def test_mesh_none_is_the_one_device_model():
+    _, cfg = _configs(use_flash=True)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(12),
+                                     "cpu")
+    tokens = torch.tensor(_tokens(13, (2, 17)))
+    torch.testing.assert_close(
+        transformer.apply(params, tokens, cfg, mesh=None),
+        transformer.apply(params, tokens, cfg), rtol=0, atol=0)

@@ -9,6 +9,7 @@ get the same answers from both.
 
 import ast
 import pathlib
+import sys
 import threading
 
 import jax
@@ -178,6 +179,25 @@ def test_predictor_from_checkpoint(tmp_path):
     got = TorchPredictor.from_checkpoint(restored, apply_fn=apply_fn,
                                          device="cpu").predict(tokens)
     np.testing.assert_array_equal(got, want)
+
+
+def test_predictor_returns_bf16_like_jax(monkeypatch):
+    """A bf16 output comes back as JaxPredictor's does: an ml_dtypes
+    bfloat16 array of the same values (float32 where ml_dtypes is
+    missing)."""
+    batch = np.ones((2, 3), dtype=np.float32)
+    want = JaxPredictor({"w": 2.0}, lambda p, b: (b * p["w"]).astype(
+        jnp.bfloat16)).predict(batch)
+    got = TorchPredictor({"w": 2.0}, lambda p, b: (b * p["w"]).to(
+        torch.bfloat16), device="cpu").predict(batch)
+    assert got.dtype == want.dtype and got.shape == want.shape == (2, 3)
+    np.testing.assert_array_equal(got.astype(np.float32),
+                                  want.astype(np.float32))
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    got = TorchPredictor({"w": 2.0}, lambda p, b: (b * p["w"]).to(
+        torch.bfloat16), device="cpu").predict(batch)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.full((2, 3), 2.0, np.float32))
 
 
 def test_resolve_device(monkeypatch):

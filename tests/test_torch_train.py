@@ -1,12 +1,14 @@
 """Port's training step against the JAX package's, from the same weights.
 
-The JAX ``make_lm_train_step`` runs on a one-device CPU mesh; its initial
-parameters are carried across with ``params_from_numpy`` and the port's
-``init_fn(params=...)``. Both then take 3 steps on the same seeded token
+The JAX ``make_lm_train_step`` runs on a one-device CPU mesh from seeded
+numpy weights, which are carried across with ``params_from_numpy`` and the
+port's ``init_fn(params=...)``. Both then take 3 steps on the same seeded token
 batch (f32, TINY config, default AdamW); loss and grad norm agree step by
 step at rtol 1e-4. The JAX flash path runs its Pallas kernels in interpret
 mode, the port its plain versions through ``_FlashAttention``.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -14,12 +16,14 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from ray_tpu.models import transformer as jax_transformer
 from ray_tpu.parallel import MeshConfig, build_mesh
 from ray_tpu.train.step import make_lm_train_step as jax_make_lm_train_step
 from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.parallel import ShardingRules
 from ray_tpu_torch.train import adamw, make_lm_train_step
 
 TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
@@ -34,17 +38,48 @@ def _batches(seed=0, shape=(2, 33)):
     return [tokens] * STEPS
 
 
+@pytest.fixture(scope="module")
+def jax_init():
+    """Initial parameters as numpy, shared by both trajectories: seeded
+    normals at ``init_params``'s shapes and scales (JAX's own init compiles
+    for seconds), norms at one."""
+    cfg = TransformerConfig(**TINY)
+    rng = np.random.default_rng(3)
+
+    def draw(path, shape):
+        if path[-1].startswith("ln"):
+            return np.ones(shape, np.float32)
+        fan_in = shape[1] if path[0] == "blocks" else shape[0]
+        if path[-2:] == ("attn", "wo"):
+            fan_in = shape[1] * shape[2]
+        scale = 0.02 if path == ("embed",) else fan_in ** -0.5
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def build(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (k,)) for k, v in tree.items()}
+        return draw(path, tree)
+
+    return build(transformer.param_shapes(cfg))
+
+
 @pytest.fixture(scope="module", params=["dense", "flash"])
-def trajectories(request):
+def trajectories(request, jax_init):
     """(jax, port) lists of (loss, grad_norm), one run per module."""
     use_flash = request.param == "flash"
     jcfg = jax_transformer.TransformerConfig(**TINY, dtype=jnp.float32,
                                              use_flash=use_flash)
     mesh = build_mesh(MeshConfig(data=1), jax.devices()[:1])
-    init_fn, step_fn, shard_batch = jax_make_lm_train_step(jcfg, mesh)
-    state = init_fn(jax.random.PRNGKey(0))
-    # A copy: the JAX step donates its state buffers.
-    np_params = jax.tree.map(lambda a: np.array(a, copy=True), state[0])
+    # The JAX step's default optimizer, passed so that its state can be
+    # built here from the shared weights (what its init_fn does).
+    tx = optax.adamw(3e-4, weight_decay=0.01)
+    _, step_fn, shard_batch = jax_make_lm_train_step(jcfg, mesh,
+                                                     optimizer=tx)
+    params = jax.tree.map(jnp.asarray, jax_init)
+    # Committed to the mesh as the step's outputs are, so that the second
+    # step does not compile again.
+    state = jax.device_put((params, tx.init(params)),
+                           NamedSharding(mesh, PartitionSpec()))
     want = []
     for tokens in _batches():
         state, m = step_fn(state, shard_batch(jnp.asarray(tokens)))
@@ -52,7 +87,7 @@ def trajectories(request):
 
     cfg = TransformerConfig(**TINY, dtype=torch.float32, use_flash=use_flash)
     init, step, shard = make_lm_train_step(cfg, device="cpu")
-    state = init(params=transformer.params_from_numpy(np_params, cfg, "cpu"))
+    state = init(params=transformer.params_from_numpy(jax_init, cfg, "cpu"))
     got = []
     for tokens in _batches():
         state, m = step(state, shard(tokens))
@@ -89,13 +124,20 @@ def test_default_optimizer_follows_optax_adamw():
 
 
 def test_mesh_and_pipeline_arguments_raise():
+    """Rules without a mesh, no microbatches, a mesh on another device, or
+    a pipe axis that does not divide the layers: each raises."""
     cfg = TransformerConfig(**TINY, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_lm_train_step(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_lm_train_step(cfg, rules=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="microbatches"):
-        make_lm_train_step(cfg, num_microbatches=4, device="cpu")
+    with pytest.raises(ValueError, match="rules need a mesh"):
+        make_lm_train_step(cfg, rules=ShardingRules(), device="cpu")
+    with pytest.raises(ValueError, match="num_microbatches"):
+        make_lm_train_step(cfg, num_microbatches=0, device="cpu")
+    mesh = types.SimpleNamespace(device_type="cuda", shape={"pipe": 1})
+    with pytest.raises(ValueError, match="the mesh is on cuda"):
+        make_lm_train_step(cfg, mesh=mesh, device="cpu")
+    mesh = types.SimpleNamespace(device_type="cpu",
+                                 shape={"pipe": 3, "tensor": 1})
+    with pytest.raises(ValueError, match="not divisible by pipe=3"):
+        make_lm_train_step(cfg, mesh=mesh, device="cpu")
 
 
 def test_init_fn_and_state():
