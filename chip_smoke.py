@@ -68,7 +68,22 @@ Phases, each of which asserts:
    warm-up and 5 measured steps, losses finite and falling, 2 x n_layers /
    n_layers / n_layers kernel launches a step, and the step time beside
    phase 9's (the cost of the DTensor path at world size 1); (d) the
-   one-device and the sharded step timed in turns in this process.
+   one-device and the sharded step timed in turns in this process;
+15. runtime (``ray_tpu_torch``'s in-process runtime): (a) ``init(num_cpus=8)``
+   detects the card as ``GPU: 1.0``; whether the native object arena and
+   scheduling library loaded; (b) a bf16 [8192, 8192] tensor produced on a
+   side stream (behind ~50 ms of spinning) and ``put``: ``get`` from another
+   task returns the same object, device memory is unchanged, and its values
+   equal a host-synchronised copy (the put's event was waited on); an
+   in-place write makes ``get`` refuse it; the put/get round trip (host
+   clock, median of 100); (c) phase 5's deployment, weights and requests in
+   a ``num_gpus=1`` actor granted ``[cuda:0]``: f32 answers against the
+   dense run as in phase 5, then bf16 (1 warm-up and 3 measured passes),
+   ``n_layers`` forward launches per batch, requests/s beside phase 5's;
+   (d) a ``num_gpus=1`` task over a CUDA tensor (as an ObjectRef and as an
+   argument: same ``data_ptr``) returns the product on the card, and a
+   request for more GPUs than the node has is infeasible; (e) ``shutdown``
+   and a second ``init`` in the same process.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -136,6 +151,16 @@ RESNET_RTOL = 1e-3
 RESNET_TRAIN = (("resnet50", 128), ("resnet18", 256))
 RESNET_STEPS = 10    # measured, after one warm-up step
 BENCH_TIMEOUT_S = 600
+# Phase 15: the in-process runtime. A bf16 [8192, 8192] device object, put
+# while its product is still queued behind SIDE_STREAM_SLEEP_CYCLES (~50 ms
+# at the H100's boost clock) of spinning on a side stream; its put/get round
+# trip timed PUT_GET_RUNS times. Runtime files go under the git-ignored
+# build/ rather than the temporary directory.
+OBJECT_SIDE = 8192
+SIDE_STREAM_SLEEP_CYCLES = 100_000_000
+PUT_GET_RUNS = 100
+RUNTIME_CONFIG = {"flight_recorder_dir": "build/runtime/flight",
+                  "object_spilling_dir": "build/runtime/spill"}
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -356,21 +381,44 @@ def serve_all(deployment, requests, timeout_s: float = 300.0):
     return answers, seconds
 
 
+def serve_inputs(device, width=SERVE_WIDTH, n_requests=N_REQUESTS):
+    """The seeded requests and f32 weights of phases 5 and 15: (the rng
+    after the requests, lengths, requests, f32 config, params)."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(1, width["max_seq_len"] + 1, size=n_requests)
+    requests = [rng.integers(0, width["vocab_size"], size=n).tolist()
+                for n in lengths]
+    cfg32 = TransformerConfig(**width, dtype=torch.float32, use_flash=True)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return (rng, lengths, requests, cfg32,
+            transformer.init_params(cfg32, gen, device))
+
+
+def check_dense(cfg32, params, requests, answers, device):
+    """Every f32 answer against a one-request, unpadded dense-attention run
+    at rtol = atol = 1e-3."""
+    from ray_tpu_torch.models import transformer
+    dense = dataclasses.replace(cfg32, use_flash=False)
+    with torch.inference_mode():
+        for req, got in zip(requests, answers):
+            tokens = torch.tensor([req], device=device)
+            want = transformer.apply(params, tokens, dense)[0, -1]
+            np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-3,
+                                       atol=1e-3)
+
+
 def serve_phase(fa, device, width=SERVE_WIDTH, n_requests=N_REQUESTS):
     """Phase 5. Returns the bf16 runs' launches, batches, median seconds,
     real tokens per run, and the time of one full-batch forward."""
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.models.transformer import TransformerConfig
 
-    rng = np.random.default_rng(SEED)
-    max_len = width["max_seq_len"]
-    lengths = rng.integers(1, max_len + 1, size=n_requests)
-    requests = [rng.integers(0, width["vocab_size"], size=n).tolist()
-                for n in lengths]
+    rng, lengths, requests, cfg32, params = serve_inputs(device, width,
+                                                         n_requests)
     n_tokens = int(lengths.sum())
-    cfg32 = TransformerConfig(**width, dtype=torch.float32, use_flash=True)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    params = transformer.init_params(cfg32, gen, device)
     log(f"[serve] {transformer.num_params(params) / 1e6:.1f} M parameters, "
         f"{n_requests} requests, lengths {lengths.tolist()}")
 
@@ -380,13 +428,7 @@ def serve_phase(fa, device, width=SERVE_WIDTH, n_requests=N_REQUESTS):
     ans32, _ = serve_all(dep, requests)
     assert fa.launches == cfg32.n_layers * dep.batches, (
         fa.launches, dep.batches)
-    dense = TransformerConfig(**width, dtype=torch.float32, use_flash=False)
-    with torch.inference_mode():
-        for req, got in zip(requests, ans32):
-            tokens = torch.tensor([req], device=device)
-            want = transformer.apply(params, tokens, dense)[0, -1]
-            np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-3,
-                                       atol=1e-3)
+    check_dense(cfg32, params, requests, ans32, device)
     log(f"[serve] f32: {n_requests} answers in {dep.batches} batches match "
         f"the unpadded dense run at rtol=atol=1e-3; kernel launches "
         f"{cfg32.n_layers} per batch")
@@ -421,6 +463,201 @@ def serve_phase(fa, device, width=SERVE_WIDTH, n_requests=N_REQUESTS):
                 seconds=statistics.median(t for _, t in runs),
                 n_tokens=n_tokens, forward_ms=forward_ms,
                 n_layers=cfg16.n_layers)
+
+
+def runtime_phase(fa, device, card, direct_rps, width=SERVE_WIDTH,
+                  n_requests=N_REQUESTS, side=OBJECT_SIDE):
+    """Phase 15: the in-process runtime (``ray_tpu_torch.init`` → tasks,
+    actors, the object store) on the card. Returns the put/get round trip
+    in µs and the actor path's bf16 requests/s."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import scheduler, worker
+
+    # (a) init with no GPU argument: the card is detected.
+    config = {k: str(REPO / v) for k, v in RUNTIME_CONFIG.items()}
+    rt.init(num_cpus=8, _system_config=config)
+    try:
+        res = rt.cluster_resources()
+        assert res.get("GPU") == torch.cuda.device_count(), res
+        store = worker.global_worker().runtime.head_node.store
+        arena = store.stats()["native_arena"]
+        sched = scheduler._native() is not None
+        log(f"[runtime] init(num_cpus=8): {res}; native object arena "
+            f"{'loaded' if arena else 'NOT loaded (heap store)'}, native "
+            f"scheduling library "
+            f"{'loaded' if sched else 'NOT loaded (Python policy)'}")
+        put_get_us = device_objects(rt, device, card, side)
+        actor_rps = actor_serving(rt, fa, device, card, direct_rps, width,
+                                  n_requests)
+        gpu_task(rt, device)
+    finally:
+        rt.shutdown()
+    # (e) a second runtime in the same process.
+    rt.init(num_cpus=2)
+    try:
+        assert rt.get(rt.remote(lambda: 7).remote(), timeout=60) == 7
+        assert rt.cluster_resources().get("GPU") == torch.cuda.device_count()
+    finally:
+        rt.shutdown()
+    log("[runtime] shutdown(), then a second init() in the same process "
+        "ran a task")
+    return dict(put_get_us=put_get_us, actor_rps=actor_rps)
+
+
+def device_objects(rt, device, card, side=OBJECT_SIDE):
+    """Phase 15 (b): a CUDA tensor is a device object, by reference, ready
+    for its getter, and refused once written in place. Returns the put/get
+    round trip's median in µs (host clock)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    a, b = (torch.randn(side, side, generator=gen, device=device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        # The product is queued behind ~50 ms of spinning, so a reader
+        # that did not wait for the put's event would read it unfinished.
+        torch.cuda._sleep(SIDE_STREAM_SLEEP_CYCLES)
+        x = a @ b
+        allocated = torch.cuda.memory_allocated(device)
+        ref = rt.put(x)
+
+    @rt.remote
+    def fetch(refs):
+        return rt.get(refs[0])   # a nested ref: this task gets it itself
+
+    got = rt.get(fetch.remote([ref]))
+    assert got is x
+    assert torch.cuda.memory_allocated(device) == allocated
+    early = got.cpu()            # on this thread's stream, no host sync
+    torch.cuda.synchronize()
+    assert torch.equal(early, x.cpu()), "get returned the object unfinished"
+    log(f"[runtime] a bf16 [{side}, {side}] tensor written on a side stream "
+        f"and put: get from another task returns the same object, device "
+        f"memory unchanged ({allocated} bytes), and its values equal a "
+        f"host-synchronised copy")
+
+    x.add_(1)
+    try:
+        rt.get(ref)
+    except rt.RayTpuError as e:
+        assert "modified in place" in str(e), e
+    else:
+        raise AssertionError("get of an object written in place succeeded")
+    log("[runtime] after an in-place write, get refuses the object")
+
+    times = []
+    for _ in range(PUT_GET_RUNS):
+        t0 = time.perf_counter()
+        assert rt.get(rt.put(x)) is x
+        times.append(time.perf_counter() - t0)
+    assert torch.cuda.memory_allocated(device) == allocated
+    us = statistics.median(times) * 1e6
+    log(f"[times] {card}: put/get round trip of that tensor {us:.1f} µs "
+        f"(host clock, median of {PUT_GET_RUNS}); device memory unchanged")
+    del a, b, x, got, early
+    torch.cuda.empty_cache()
+    return us
+
+
+def actor_serving(rt, fa, device, card, direct_rps, width=SERVE_WIDTH,
+                  n_requests=N_REQUESTS):
+    """Phase 15 (c): phase 5's deployment, weights and requests, served
+    from a ``num_gpus=1`` actor. Returns the bf16 requests/s."""
+    from ray_tpu_torch.models import transformer
+
+    _, lengths, requests, cfg32, params = serve_inputs(device, width,
+                                                       n_requests)
+
+    @rt.remote(num_gpus=1, max_concurrency=n_requests)
+    class LMServer:
+        """User code: the deployment inside a GPU actor."""
+
+        def __init__(self, cfg, params):
+            self.deployment = make_deployment(cfg, params, device)
+
+        def devices(self):
+            return rt.get_runtime_context().get_gpu_devices()
+
+        def batches(self):
+            return self.deployment.batches
+
+        def __call__(self, request):
+            return self.deployment(request)
+
+    def serve_pass(server):
+        # The handle refuses dunder attributes (``server.__call__`` is the
+        # handle's own), so the method is named through ActorMethod.
+        call = rt.ActorMethod(server, "__call__")
+        t0 = time.perf_counter()
+        answers = rt.get([call.remote(r) for r in requests], timeout=600)
+        return answers, time.perf_counter() - t0
+
+    server = LMServer.remote(cfg32, params)
+    devices = rt.get(server.devices.remote(), timeout=600)
+    assert devices == [torch.device("cuda", 0)], devices
+    fa.launches = 0
+    ans32, _ = serve_pass(server)
+    batches = rt.get(server.batches.remote())
+    assert fa.launches == cfg32.n_layers * batches, (fa.launches, batches)
+    check_dense(cfg32, params, requests, ans32, device)
+    log(f"[runtime] f32 from a num_gpus=1 actor granted {devices}: "
+        f"{n_requests} answers in {batches} batches match the unpadded "
+        f"dense run at rtol=atol=1e-3; kernel launches {cfg32.n_layers} per "
+        f"batch")
+    rt.kill(server)
+
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    params16 = transformer.cast_params(params, torch.bfloat16)
+    del params
+    server = LMServer.remote(cfg16, params16)
+    serve_pass(server)
+    before = rt.get(server.batches.remote(), timeout=600)
+    fa.launches = 0
+    runs = [serve_pass(server) for _ in range(SERVE_RUNS)]
+    launches = fa.launches
+    batches = rt.get(server.batches.remote()) - before
+    assert launches == cfg16.n_layers * batches, (launches, batches)
+    for answers, _ in runs:
+        assert all(np.isfinite(a).all() for a in answers), "non-finite logits"
+        assert all(a.shape == (width["vocab_size"],) for a in answers)
+    seconds = statistics.median(t for _, t in runs)
+    rps = n_requests / seconds
+    log(f"[runtime] bf16 from the actor: {n_requests} finite answers x "
+        f"{SERVE_RUNS} passes in {batches} batches; kernel launches "
+        f"{cfg16.n_layers} per batch")
+    log(f"[times] {card}: bf16 serving from a num_gpus=1 actor {rps:.2f} "
+        f"requests/s, {int(lengths.sum()) / seconds:.0f} tokens/s (median "
+        f"of {SERVE_RUNS} passes, {seconds:.4f} s); phase 5 direct "
+        f"{direct_rps:.2f} requests/s")
+    rt.kill(server)
+    return rps
+
+
+def gpu_task(rt, device):
+    """Phase 15 (d): a ``num_gpus=1`` task over a CUDA tensor, given as an
+    ObjectRef and as a plain argument, and a GPU request no node can meet."""
+    @rt.remote(num_gpus=1, num_returns=2)
+    def gram(t):
+        return t @ t.T, t.data_ptr()
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    z = torch.randn(1024, 1024, generator=gen, device=device)
+    want = z @ z.T
+    for arg in (rt.put(z), z):
+        out, ptr = rt.get(list(gram.remote(arg)), timeout=60)
+        assert ptr == z.data_ptr() and out.device == z.device, (ptr, out)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    too_many = torch.cuda.device_count() + 1
+    try:
+        rt.get(rt.remote(num_gpus=too_many)(lambda: 1).remote(), timeout=60)
+    except rt.RayTpuError as e:
+        assert "cannot be satisfied" in str(e), e
+    else:
+        raise AssertionError(f"a task asking for {too_many} GPUs ran")
+    log(f"[runtime] a num_gpus=1 task got the CUDA tensor with no copy (as "
+        f"an ObjectRef and as an argument) and returned z @ z.T on "
+        f"{out.device}, equal to the direct product at 1e-5; a task asking "
+        f"for {too_many} GPUs is infeasible")
 
 
 def assert_grads_close(got, want, dtype, case):
@@ -1072,6 +1309,11 @@ def main() -> int:
         f"{step_ms:.3f} ms; in turns (median of {2 * STEP_PAIRS} each): "
         f"sharded {paired['sharded']:.3f} ms, one-device "
         f"{paired['one-device']:.3f} ms")
+
+    # 15. the in-process runtime: device objects, the serving path from a
+    # GPU actor (launches counted there), a GPU task
+    torch.cuda.empty_cache()
+    runtime_phase(fa, device, card, N_REQUESTS / seconds)
 
     fwd_launches, dq_launches, dkv_launches = trained["launches"]
     log(json.dumps({"kernels": [{

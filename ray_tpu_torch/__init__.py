@@ -5,12 +5,18 @@ public names, written in PyTorch idiom, with every Pallas kernel of the JAX
 package replaced by a CUDA kernel written by hand for Hopper (``sm_90a``).
 The package never imports ``jax`` or ``ray_tpu``.
 
-This slice serves the flagship decoder transformer: ``models.transformer``
-runs its attention through the CUDA flash-attention forward kernel in
-``ops``, ``air.TorchPredictor`` holds the weights on the card, and
-``serve.batch`` pads requests to static buckets. The runtime (tasks,
-actors, object store) is not ported yet, so the package root exports no
-runtime API.
+The package root exports the in-process runtime (``init`` → ``@remote`` →
+``get``: tasks, actors, the object store, placement groups), with GPUs as
+its accelerator resource: ``init(num_gpus=...)`` and
+``get_runtime_context().get_gpu_devices()`` take the place of the JAX
+package's ``num_tpus`` and ``get_tpu_devices()``. A ``torch.Tensor`` is a
+device object, stored by reference and refused at ``get`` once written in
+place. The multi-process runtime (``init(address=...)``) is not ported yet.
+
+On top of it: ``models.transformer`` runs its attention through the CUDA
+flash-attention kernels in ``ops``, ``air.TorchPredictor`` holds the weights
+on the card, ``serve.batch`` pads requests to static buckets, ``train``
+steps the model, and ``parallel`` shards the step over ``torch.distributed``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA where there is none raises rather than falling back.
@@ -41,4 +47,32 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "DeviceLike"]
+from ray_tpu_torch._private.config import _config  # noqa: E402,F401
+from ray_tpu_torch._private.worker import (  # noqa: E402
+    available_resources, cancel, cluster_resources, drain_node, get,
+    get_actor, init, is_initialized, kill, nodes, put,
+    register_named_actor_class, register_named_function,
+    set_profiling_enabled, set_tracing_enabled, shutdown, timeline, wait)
+from ray_tpu_torch.actor import ActorClass, ActorHandle, ActorMethod  # noqa: E402
+from ray_tpu_torch.exceptions import (ActorDiedError,  # noqa: E402
+                                      GetTimeoutError, ObjectLostError,
+                                      RayTpuError, TaskCancelledError,
+                                      TaskError)
+from ray_tpu_torch.object_ref import ObjectRef  # noqa: E402
+from ray_tpu_torch.remote_function import RemoteFunction, remote  # noqa: E402
+from ray_tpu_torch.runtime_context import get_runtime_context  # noqa: E402
+
+__all__ = [
+    "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
+    "kill", "cancel", "get_actor", "available_resources", "cluster_resources",
+    "drain_node",
+    "register_named_actor_class",
+    "register_named_function", "set_profiling_enabled",
+    "set_tracing_enabled",
+    "nodes", "timeline", "ObjectRef", "ActorClass", "ActorHandle",
+    "ActorMethod",
+    "RemoteFunction", "get_runtime_context",
+    "RayTpuError", "TaskError", "ActorDiedError", "ObjectLostError",
+    "GetTimeoutError", "TaskCancelledError",
+    "resolve_device", "DeviceLike",
+]

@@ -4,12 +4,16 @@ Parity with the reference's ``RAY_CONFIG(type, name, default)`` flag table
 (``src/ray/common/ray_config_def.h:22ff``): every flag is declared once with a
 type and default, is overridable via a ``RAY_TPU_<NAME>`` environment variable,
 and may be overridden programmatically via ``ray_tpu.init(_system_config=...)``.
+The directory flags default under the process's temporary directory
+(``tempfile.gettempdir()``, so ``TMPDIR`` moves them), with the reference's
+``ray_tpu`` directory names.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 import threading
 from typing import Any, Callable, Dict
 
@@ -24,6 +28,9 @@ _PARSERS: Dict[type, Callable[[str], Any]] = {
     float: float,
     str: str,
 }
+
+
+_TMP = tempfile.gettempdir()
 
 
 class Config:
@@ -92,7 +99,7 @@ _config.define("use_native_scheduler", bool, True,
 _config.define("object_store_memory_bytes", int, 2 << 30,
                "per-node budget for host objects before spilling")
 _config.define("object_spilling_enabled", bool, True, "spill to disk when over budget")
-_config.define("object_spilling_dir", str, "/tmp/ray_tpu_spill", "")
+_config.define("object_spilling_dir", str, os.path.join(_TMP, "ray_tpu_spill"), "")
 _config.define("object_spilling_threshold", float, 0.8, "fraction of budget that triggers spill")
 _config.define("min_spilling_size_bytes", int, 1 << 20, "batch small objects up to this size")
 _config.define("inline_object_max_bytes", int, 100 * 1024,
@@ -231,10 +238,10 @@ _config.define("ici_axes_preference", str, "data,fsdp,tensor",
                "mesh axis order preference: fastest-varying axes ride ICI")
 
 # -- Logging / events -----------------------------------------------------------
-_config.define("event_log_dir", str, "/tmp/ray_tpu/events", "")
+_config.define("event_log_dir", str, os.path.join(_TMP, "ray_tpu", "events"), "")
 _config.define("event_log_enabled", bool, False,
                "persist structured events as JSONL under event_log_dir")
-_config.define("log_dir", str, "/tmp/ray_tpu/logs", "")
+_config.define("log_dir", str, os.path.join(_TMP, "ray_tpu", "logs"), "")
 _config.define("metrics_report_interval_ms", int, 2000, "")
 
 # -- Tracing --------------------------------------------------------------------
@@ -248,7 +255,7 @@ _config.define("trace_ring_size", int, 200_000,
 _config.define("flight_recorder_enabled", bool, True,
                "spool spans/logs/metrics to a crash-safe on-disk ring so a "
                "SIGKILL'd process still leaves evidence behind")
-_config.define("flight_recorder_dir", str, "/tmp/ray_tpu/flight",
+_config.define("flight_recorder_dir", str, os.path.join(_TMP, "ray_tpu", "flight"),
                "root for per-process recording dirs and sealed crash bundles")
 _config.define("flight_recorder_spool_ms", int, 500,
                "spool-thread tick period; lower = fresher last words after "
@@ -270,7 +277,7 @@ _config.define("drain_deadline_s", float, 30.0,
 _config.define("drain_poll_ms", int, 50,
                "drain orchestrator poll period while waiting for in-flight "
                "tasks to quiesce")
-_config.define("drain_checkpoint_root", str, "/tmp/ray_tpu_drain",
+_config.define("drain_checkpoint_root", str, os.path.join(_TMP, "ray_tpu_drain"),
                "shared directory for drained-actor snapshots; must be "
                "reachable from the surviving nodes (NFS on real fleets)")
 _config.define("preempt_probe_url", str, "",

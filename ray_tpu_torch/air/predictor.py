@@ -72,9 +72,22 @@ class TorchPredictor(Predictor):
         return cls(params, apply_fn, preprocessor=preprocessor, device=device)
 
     def _predict(self, data):
+        """``np.asarray`` of the output, as ``JaxPredictor`` returns it: an
+        array for a tensor; for a dict, list or tuple, ``np.asarray`` of the
+        tree with its tensors as numpy (a dict gives a 0-d object array)."""
         with torch.inference_mode():
             out = self._apply(self.params, _to_device(data, self.device))
-            return _to_numpy(out.cpu())
+            return np.asarray(_tree_to_numpy(out))
+
+
+def _tree_to_numpy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return _to_numpy(tree.cpu())
+    return tree
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -64,7 +64,7 @@ FORWARD_FLOPS_PER_IMAGE = {"resnet50": 4.09e9, "resnet18": 1.82e9}
 # Dense bf16 peak FLOP/s by torch.cuda.get_device_name(): NVIDIA's H100
 # SXM data sheet (at its 700 W limit).
 PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
-PPO_ERROR = "rl/ is not ported yet (ROADMAP Queue 1 item 9)"
+PPO_ERROR = "rl/ is not ported yet (ROADMAP Queue 1: rl/)"
 
 
 def peak_bf16_flops(device_name: str) -> Optional[float]:

@@ -200,6 +200,42 @@ def test_predictor_returns_bf16_like_jax(monkeypatch):
     np.testing.assert_array_equal(got, np.full((2, 3), 2.0, np.float32))
 
 
+
+TREE_OUTPUTS = {
+    # name: (JAX apply, torch apply), each over {"w": [3, 4]} and [2, 3]
+    "dict": (lambda p, b: {"y": b @ p["w"], "s": (b @ p["w"]).sum(-1)},
+             lambda p, b: {"y": b @ p["w"], "s": (b @ p["w"]).sum(-1)}),
+    "list": (lambda p, b: [b @ p["w"], 2 * (b @ p["w"])],
+             lambda p, b: [b @ p["w"], 2 * (b @ p["w"])]),
+    "tuple": (lambda p, b: (b @ p["w"], (b @ p["w"]).astype(jnp.bfloat16)),
+              lambda p, b: (b @ p["w"], (b @ p["w"]).to(torch.bfloat16))),
+}
+
+
+@pytest.mark.parametrize("tree", sorted(TREE_OUTPUTS))
+def test_predictor_returns_tree_outputs_like_jax(tree):
+    """A dict, list or tuple output comes back as JaxPredictor's does:
+    ``np.asarray`` of the tree (a dict is a 0-d object array holding it),
+    with the tensors in it as numpy."""
+    rng = np.random.default_rng(0)
+    params = {"w": rng.standard_normal((3, 4)).astype(np.float32)}
+    batch = rng.standard_normal((2, 3)).astype(np.float32)
+    jax_fn, torch_fn = TREE_OUTPUTS[tree]
+    want = JaxPredictor(params, jax_fn).predict(batch)
+    got = TorchPredictor(params, torch_fn, device="cpu").predict(batch)
+    assert isinstance(got, np.ndarray)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if tree == "dict":
+        assert got.shape == () and got.dtype == object
+        got, want = got.item(), want.item()
+        assert got.keys() == want.keys()
+        for k in want:
+            assert isinstance(got[k], np.ndarray)
+            np.testing.assert_allclose(got[k], np.asarray(want[k]),
+                                       rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
 def test_resolve_device(monkeypatch):
     assert ray_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
