@@ -83,7 +83,27 @@ Phases, each of which asserts:
    (d) a ``num_gpus=1`` task over a CUDA tensor (as an ObjectRef and as an
    argument: same ``data_ptr``) returns the product on the card, and a
    request for more GPUs than the node has is infeasible; (e) ``shutdown``
-   and a second ``init`` in the same process.
+   and a second ``init`` in the same process;
+16. Serve plane (``ray_tpu_torch.serve``: controller, replicas, router,
+   handles, HTTP proxy) on ``init(num_cpus=8)``: phase 5's weights and
+   requests, served by one deployment whose replicas batch requests
+   themselves (``max_batch_size=8``, ``pad_batch_to`` the batch buckets):
+   (a) ``serve.run`` with ``ray_actor_options={"num_gpus": 1}``, f32, the 16
+   requests from 16 threads through ``handle.remote(r).result()``: the
+   replica was granted ``[cuda:0]``, answers match the dense run at 1e-3,
+   ``n_layers`` forward launches per batch; (c) ``start_http_proxy``: the
+   same requests POSTed as JSON token lists, each answer the JSON logit row,
+   checked the same way; ``/-/healthz`` 200, ``/-/routes`` lists the route,
+   an unknown route 404; (b) a rolling update to bf16: 1 warm-up and 3
+   measured passes by handle from 16 threads, then 3 from one thread (as
+   phase 15 submits), answers finite, requests/s beside phases 5 and 15,
+   with the replica's batch sizes and the seconds it spent answering; (d)
+   a rolling update to two ``num_gpus=0.5`` replicas (granted no device,
+   user code on ``cuda``) answering the replica's tag and the row as a CUDA
+   tensor: both replicas serve; (e) ``serve.shutdown`` and
+   ``shutdown``: no serve thread left, and device memory back within 1 MiB
+   of its value before the phase. Each ``serve.run``'s seconds and each
+   sub-phase's are printed.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -97,8 +117,10 @@ result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import gc
 import importlib
 import json
 import math
@@ -110,6 +132,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -161,6 +185,12 @@ SIDE_STREAM_SLEEP_CYCLES = 100_000_000
 PUT_GET_RUNS = 100
 RUNTIME_CONFIG = {"flight_recorder_dir": "build/runtime/flight",
                   "object_spilling_dir": "build/runtime/spill"}
+# Phase 16: the Serve plane. Every deployment holds a latency budget far
+# above an f32 batch's time: at the default 100 ms the replica batcher would
+# cap f32 batches below max_batch_size and the router would shed.
+SERVE_ROUTE = "/lm"
+SERVE_BUDGET_MS = 10_000.0
+SERVE_MEMORY_SLACK = 2**20
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -328,7 +358,6 @@ def make_deployment(cfg, params, device):
     """User code: a deployment class over the port's serving path."""
     from ray_tpu_torch import serve
     from ray_tpu_torch.air import TorchPredictor
-    from ray_tpu_torch.serve.batching import next_bucket
 
     class LMDeployment:
         def __init__(self):
@@ -341,19 +370,23 @@ def make_deployment(cfg, params, device):
                      pad_batch_to=BATCH_BUCKETS)
         def __call__(self, requests):
             self.batches += 1
-            # Right-pad every request to the batch's length bucket. This is
-            # exact only because attention is causal with a top-left mask
-            # and RoPE positions start at 0: a real token never sees the
-            # pad tokens to its right, and its position does not move.
-            L = next_bucket(max(len(r) for r in requests), LENGTH_BUCKETS)
-            tokens = np.zeros((len(requests), L), dtype=np.int64)
-            for i, r in enumerate(requests):
-                tokens[i, :len(r)] = r
-            last = np.array([len(r) - 1 for r in requests], dtype=np.int64)
-            return list(self.predictor.predict({"tokens": tokens,
-                                                "last": last}))
+            return list(self.predictor.predict(pad_requests(requests)))
 
     return LMDeployment()
+
+
+def pad_requests(requests):
+    """Right-pad every request to the batch's length bucket: ``{"tokens",
+    "last"}`` as numpy. This is exact only because attention is causal with
+    a top-left mask and RoPE positions start at 0: a real token never sees
+    the pad tokens to its right, and its position does not move."""
+    from ray_tpu_torch.serve.batching import next_bucket
+    L = next_bucket(max(len(r) for r in requests), LENGTH_BUCKETS)
+    tokens = np.zeros((len(requests), L), dtype=np.int64)
+    for i, r in enumerate(requests):
+        tokens[i, :len(r)] = r
+    last = np.array([len(r) - 1 for r in requests], dtype=np.int64)
+    return {"tokens": tokens, "last": last}
 
 
 def serve_all(deployment, requests, timeout_s: float = 300.0):
@@ -658,6 +691,268 @@ def gpu_task(rt, device):
         f"an ObjectRef and as an argument) and returned z @ z.T on "
         f"{out.device}, equal to the direct product at 1e-5; a task asking "
         f"for {too_many} GPUs is infeasible")
+
+
+class ServedLM:
+    """User code for phase 16: phase 5's model as a Serve deployment whose
+    replica batches requests itself (``max_batch_size`` on the deployment),
+    so ``__call__`` takes a list. ``answer`` picks what a request gets back:
+    its logit row as numpy ("numpy"), as a list for JSON ("list"), or the
+    replica's tag with the row as a CUDA tensor ("tensor")."""
+
+    def __init__(self, cfg, params, answer, device):
+        import uuid
+
+        import ray_tpu_torch
+        from ray_tpu_torch.air import TorchPredictor
+        self.granted = ray_tpu_torch.get_runtime_context().get_gpu_devices()
+        # A fractional grant names no device: the replica picks the card.
+        self.predictor = TorchPredictor(
+            params, functools.partial(last_token_logits, cfg),
+            device=self.granted[0] if self.granted else device)
+        self.cfg, self.answer = cfg, answer
+        self.tag = uuid.uuid4().hex[:8]
+        self.sizes, self.busy_s = [], 0.0
+
+    def __call__(self, requests):
+        t0 = time.perf_counter()
+        try:
+            return self._answer(requests)
+        finally:
+            self.sizes.append(len(requests))
+            self.busy_s += time.perf_counter() - t0
+
+    def _answer(self, requests):
+        batch = pad_requests(requests)
+        if self.answer == "tensor":
+            dev = self.predictor.device
+            with torch.no_grad():
+                rows = last_token_logits(
+                    self.cfg, self.predictor.params,
+                    {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()})
+            return [(self.tag, row.clone()) for row in rows]
+        rows = self.predictor.predict(batch)
+        return [r.tolist() for r in rows] if self.answer == "list" \
+            else list(rows)
+
+    def devices(self):
+        return self.granted
+
+    def stats(self):
+        """(batch sizes, seconds spent answering batches) so far."""
+        return list(self.sizes), self.busy_s
+
+
+def free_device_caches():
+    """Collect garbage and return cached blocks, cuBLAS's workspaces too
+    (one per handle and stream, allocated through the caching allocator),
+    so ``memory_allocated`` counts live tensors only."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def http_post(url, body, timeout_s=300.0):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout_s) as r:
+        return json.loads(r.read())
+
+
+def http_status(url):
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def serve_thread_names():
+    return [t for t in threading.enumerate() if t.name.startswith("serve-")]
+
+
+def serve_plane_phase(fa, device, card, direct_rps, actor_rps,
+                      width=SERVE_WIDTH, n_requests=N_REQUESTS):
+    """Phase 16: phase 5's weights and requests through the Serve plane
+    (controller, replicas, router, handles, HTTP proxy) on the in-process
+    runtime; then teardown: no serve thread is left and device memory
+    returns to where it was."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    free_device_caches()
+    before = torch.cuda.memory_allocated(device)
+    # Earlier phases' @serve.batch queues keep their own threads.
+    threads_before = set(serve_thread_names())
+    config = {k: str(REPO / v) for k, v in RUNTIME_CONFIG.items()}
+    rt.init(num_cpus=8, _system_config=config)
+    try:
+        res = rt.cluster_resources()
+        assert res.get("GPU") == torch.cuda.device_count(), res
+        serve_plane_paths(rt, serve, fa, device, card, direct_rps, actor_rps,
+                          width, n_requests)
+    finally:
+        t0 = time.perf_counter()
+        serve.shutdown()
+        rt.shutdown()
+    # (e) teardown
+    deadline = time.monotonic() + 10.0
+    while (set(serve_thread_names()) - threads_before
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    left = set(serve_thread_names()) - threads_before
+    assert not left, left
+    free_device_caches()
+    after = torch.cuda.memory_allocated(device)
+    assert abs(after - before) <= SERVE_MEMORY_SLACK, (before, after)
+    log(f"[serve-plane] (e) serve.shutdown() and shutdown() in "
+        f"{time.perf_counter() - t0:.2f} s: no serve thread left; device "
+        f"memory {before} bytes before the phase, {after} after (the "
+        f"replicas' weights went with their actors)")
+
+
+def serve_plane_paths(rt, serve, fa, device, card, direct_rps, actor_rps,
+                      width, n_requests):
+    """Phase 16 (a)-(d), on one deployment named "lm" at ``SERVE_ROUTE``:
+    f32 from a ``num_gpus=1`` replica by handle and by HTTP, a rolling
+    update to bf16, and one to two ``num_gpus=0.5`` replicas. Keeping one
+    deployment keeps every router and the proxy's handle live until
+    ``serve.shutdown``, whose delete then wakes their long polls."""
+    from ray_tpu_torch.models import transformer
+
+    _, lengths, requests, cfg32, params = serve_inputs(device, width,
+                                                       n_requests)
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    n_layers, n_tokens = cfg32.n_layers, int(lengths.sum())
+    lm = serve.deployment(
+        ServedLM, name="lm", max_batch_size=8, batch_wait_timeout_s=0.01,
+        pad_batch_to=BATCH_BUCKETS, target_latency_ms=SERVE_BUDGET_MS,
+        ray_actor_options={"num_gpus": 1})
+
+    def deploy(app, what):
+        t0 = time.perf_counter()
+        handle = serve.run(app, route_prefix=SERVE_ROUTE)
+        log(f"[serve-plane] serve.run ({what}) returned a ready handle in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return handle
+
+    def by_handle(handle):
+        return serve_all(lambda r: handle.remote(r).result(timeout=300),
+                         requests)
+
+    def batches(handle):
+        return len(handle.stats.remote().result(timeout=60)[0])
+
+    # (a) handle, f32, one num_gpus=1 replica
+    t0 = time.perf_counter()
+    h = deploy(lm.bind(cfg32, params, "list", device), "f32, num_gpus=1")
+    devices = h.devices.remote().result(timeout=60)
+    assert devices == [torch.device("cuda", 0)], devices
+    fa.launches, b0 = 0, batches(h)
+    answers, _ = by_handle(h)
+    ran = batches(h) - b0
+    assert fa.launches == n_layers * ran, (fa.launches, ran)
+    check_dense(cfg32, params, requests, answers, device)
+    f32_s = statistics.median(by_handle(h)[1] for _ in range(SERVE_RUNS))
+    log(f"[serve-plane] (a) f32 by handle from a num_gpus=1 replica granted "
+        f"{devices}: {n_requests} answers in {ran} batches match the "
+        f"unpadded dense run at rtol=atol=1e-3; kernel launches {n_layers} "
+        f"per batch ({time.perf_counter() - t0:.2f} s)")
+
+    # (c) HTTP, f32, the same replica
+    t0 = time.perf_counter()
+    base = serve.start_http_proxy()
+    url = base + SERVE_ROUTE
+    fa.launches, b0 = 0, batches(h)
+    answers, _ = serve_all(lambda r: http_post(url, r), requests)
+    ran = batches(h) - b0
+    assert fa.launches == n_layers * ran, (fa.launches, ran)
+    check_dense(cfg32, params, requests, answers, device)
+    assert http_status(base + "/-/healthz")[0] == 200
+    code, body = http_status(base + "/-/routes")
+    assert code == 200 and json.loads(body) == {SERVE_ROUTE: "lm"}, body
+    assert http_status(base + "/no-such-route")[0] == 404
+    http_s = statistics.median(
+        serve_all(lambda r: http_post(url, r), requests)[1]
+        for _ in range(SERVE_RUNS))
+    log(f"[serve-plane] (c) f32 by HTTP POST to {SERVE_ROUTE}: {n_requests} "
+        f"JSON logit rows in {ran} batches match the dense run at 1e-3; "
+        f"/-/healthz 200, /-/routes lists the route, an unknown route 404 "
+        f"({time.perf_counter() - t0:.2f} s)")
+    log(f"[times] {card}: f32 serving through the Serve plane, answers as "
+        f"lists: by handle {n_requests / f32_s:.2f} requests/s, by HTTP "
+        f"{n_requests / http_s:.2f} requests/s (medians of {SERVE_RUNS} "
+        f"passes, {f32_s:.4f} / {http_s:.4f} s)")
+
+    # (b) handle, bf16: a rolling update of the same deployment
+    t0 = time.perf_counter()
+    params16 = transformer.cast_params(params, torch.bfloat16)
+    del params
+    h = deploy(lm.bind(cfg16, params16, "numpy", device),
+               "rolling update to bf16")
+    by_handle(h)
+
+    def measured(submit):
+        """``SERVE_RUNS`` passes: (median seconds, batch sizes, seconds the
+        replica spent answering them, seconds of all the passes)."""
+        fa.launches = 0
+        sizes0, busy0 = h.stats.remote().result(timeout=60)
+        runs = [submit() for _ in range(SERVE_RUNS)]
+        sizes, busy = h.stats.remote().result(timeout=60)
+        sizes = sizes[len(sizes0):]
+        assert fa.launches == n_layers * len(sizes), (fa.launches, sizes)
+        for answers, _ in runs:
+            assert all(np.isfinite(a).all() for a in answers), \
+                "non-finite logits"
+            assert all(a.shape == (width["vocab_size"],) for a in answers)
+        return (statistics.median(t for _, t in runs), sizes, busy - busy0,
+                sum(t for _, t in runs))
+
+    def one_thread():
+        t0 = time.perf_counter()
+        responses = [h.remote(r) for r in requests]
+        answers = [r.result(timeout=300) for r in responses]
+        return answers, time.perf_counter() - t0
+
+    threads = measured(lambda: by_handle(h))
+    single = measured(one_thread)
+    log(f"[serve-plane] (b) bf16 by handle: {n_requests} finite answers x "
+        f"{SERVE_RUNS} passes from {n_requests} threads and x {SERVE_RUNS} "
+        f"from one thread; kernel launches {n_layers} per batch "
+        f"({time.perf_counter() - t0:.2f} s)")
+    for what, (seconds, sizes, busy, total) in (
+            (f"from {n_requests} threads", threads),
+            ("from one thread", single)):
+        log(f"[times] {card}: bf16 serving through the Serve plane {what} "
+            f"{n_requests / seconds:.2f} requests/s, "
+            f"{n_tokens / seconds:.0f} tokens/s (median of {SERVE_RUNS} "
+            f"passes, {seconds:.4f} s); the replica answered batches of "
+            f"{sizes} for {busy:.4f} s of the passes' {total:.4f} s (host "
+            f"clock)")
+    log(f"[times] {card}: phase 5 direct {direct_rps:.2f}, phase 15 actor "
+        f"{actor_rps:.2f} requests/s")
+
+    # (d) two num_gpus=0.5 replicas on the card
+    t0 = time.perf_counter()
+    h = deploy(lm.options(num_replicas=2, ray_actor_options={"num_gpus": 0.5})
+               .bind(cfg16, params16, "tensor", device),
+               "rolling update to 2 replicas, num_gpus=0.5")
+    fa.launches = 0
+    answers, seconds = by_handle(h)
+    served = collections.Counter(tag for tag, _ in answers)
+    assert len(served) == 2, served
+    for _, row in answers:
+        assert row.is_cuda and row.shape == (width["vocab_size"],), row.shape
+        assert torch.isfinite(row).all().item(), "non-finite logits"
+    assert fa.launches >= 2 * n_layers and fa.launches % n_layers == 0, \
+        fa.launches
+    log(f"[serve-plane] (d) bf16 from two num_gpus=0.5 replicas (no device "
+        f"granted; user code on {answers[0][1].device}): requests served "
+        f"{sorted(served.values())}, answers finite CUDA tensors read on the "
+        f"callers' threads; {fa.launches // n_layers} batches in one pass "
+        f"({seconds:.4f} s; {time.perf_counter() - t0:.2f} s)")
 
 
 def assert_grads_close(got, want, dtype, case):
@@ -1313,7 +1608,14 @@ def main() -> int:
     # 15. the in-process runtime: device objects, the serving path from a
     # GPU actor (launches counted there), a GPU task
     torch.cuda.empty_cache()
-    runtime_phase(fa, device, card, N_REQUESTS / seconds)
+    runtime = runtime_phase(fa, device, card, N_REQUESTS / seconds)
+
+    # 16. the Serve plane: controller, replicas, router, handles and the
+    # HTTP proxy (launches counted in each sub-phase)
+    t0 = time.perf_counter()
+    serve_plane_phase(fa, device, card, N_REQUESTS / seconds,
+                      runtime["actor_rps"])
+    log(f"[serve-plane] phase 16 in {time.perf_counter() - t0:.1f} s")
 
     fwd_launches, dq_launches, dkv_launches = trained["launches"]
     log(json.dumps({"kernels": [{

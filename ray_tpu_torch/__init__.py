@@ -15,7 +15,8 @@ place. The multi-process runtime (``init(address=...)``) is not ported yet.
 
 On top of it: ``models.transformer`` runs its attention through the CUDA
 flash-attention kernels in ``ops``, ``air.TorchPredictor`` holds the weights
-on the card, ``serve.batch`` pads requests to static buckets, ``train``
+on the card, ``serve`` runs deployments in replica actors behind handles and
+an HTTP proxy (``serve.batch`` pads requests to static buckets), ``train``
 steps the model, and ``parallel`` shards the step over ``torch.distributed``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -150,6 +150,15 @@ class Node:
         self._pool.shutdown(wait=False, cancel_futures=True)
 
 
+def _live_instance(state: "ActorState"):
+    """The actor's instance, or ``ActorDiedError`` for a call that was
+    dequeued before the actor was killed (death drops the instance)."""
+    instance = state.instance
+    if instance is None:
+        raise exc.ActorDiedError(str(state.death_cause or "actor is dead"))
+    return instance
+
+
 class ActorState:
     RESTARTING = "RESTARTING"
     ALIVE = "ALIVE"
@@ -1170,7 +1179,7 @@ class Runtime:
                     raise exc.TaskCancelledError(spec.task_id)
                 args = _resolve_refs(spec.args, self)
                 kwargs = _resolve_refs(spec.kwargs, self)
-                method = getattr(state.instance, spec.method_name)
+                method = getattr(_live_instance(state), spec.method_name)
                 env = _materialize_env(spec, state)
                 if env is not None:
                     with env.applied():
@@ -1208,6 +1217,11 @@ class Runtime:
                     args=span_args)
                 self._fire_completion(spec)
                 self._kick()
+                # Drop this call's references before waiting for the next:
+                # an idle consumer must not keep the last call's arguments
+                # or result (a serve deploy's weights) alive.
+                item = spec = args = kwargs = method = result = None
+                wrapped = None
 
     def _run_async_actor_loop(self, state: ActorState, max_concurrency: int):
         import asyncio
@@ -1227,7 +1241,7 @@ class Runtime:
                         raise exc.TaskCancelledError(spec.task_id)
                     args = _resolve_refs(spec.args, self)
                     kwargs = _resolve_refs(spec.kwargs, self)
-                    method = getattr(state.instance, spec.method_name)
+                    method = getattr(_live_instance(state), spec.method_name)
                     env = _materialize_env(spec, state)
                     if env is not None:
                         with env.applied():
@@ -1343,7 +1357,13 @@ class Runtime:
             with self.lock:
                 self.task_states[spec.task_id] = "FAILED"
             self._fire_completion(spec)
-        state.mailbox.put(None)  # wake consumers so threads exit
+        # Wake every consumer so all the actor's threads exit, and drop the
+        # instance and its init arguments: a dead actor must not keep its
+        # device memory (a serve replica's weights) alive.
+        for _ in range(len(state.threads) or 1):
+            state.mailbox.put(None)
+        state.instance = None
+        state.args, state.kwargs = (), {}
         self._release_actor_allocation(state)
         with self.lock:
             if state.name and self.named_actors.get(

@@ -681,6 +681,46 @@ def test_tensor_argument_reaches_the_callee_without_a_copy(port, how):
     assert port.get(pointer.remote(arg)) == (x.data_ptr(), True)
 
 
+@pytest.mark.parametrize("max_concurrency", [1, 4])
+def test_actor_threads_do_not_keep_arguments_or_a_killed_instance(
+        port, max_concurrency):
+    """Two faults of the JAX package fixed in the port (ROADMAP Queue 3):
+    an idle actor thread kept its last call's arguments alive, and a killed
+    actor kept its instance and init arguments, with all but one thread of
+    its pool waiting forever."""
+    import weakref
+
+    @port.remote(max_concurrency=max_concurrency)
+    class Holder:
+        def __init__(self, w):
+            self.w = w
+
+        def total(self, extra):
+            return float(self.w.sum() + extra.sum())
+
+    def actor_threads():
+        return [t for t in threading.enumerate()
+                if t.name.startswith("actor-Holder")]
+
+    w, extra = torch.ones(4), torch.ones(2)
+    alive = (weakref.ref(w), weakref.ref(extra))
+    actor = Holder.remote(w)
+    assert port.get(actor.total.remote(extra), timeout=10) == 6.0
+    assert wait_until(lambda: len(actor_threads()) == max_concurrency)
+    del w, extra
+    gc.collect()
+    assert alive[1]() is None       # the call's argument, actor still up
+    port.kill(actor)
+
+    def released():
+        gc.collect()
+        return alive[0]() is None and not actor_threads()
+
+    assert wait_until(released)
+    with pytest.raises(port.ActorDiedError):
+        port.get(actor.total.remote(torch.ones(1)), timeout=10)
+
+
 @pytest.mark.parametrize("kwargs, want", [
     (dict(num_cpus=2), {"CPU": 2.0}),
     (dict(num_cpus=2, num_gpus=2), {"CPU": 2.0, "GPU": 2.0}),
