@@ -103,7 +103,30 @@ Phases, each of which asserts:
    tensor: both replicas serve; (e) ``serve.shutdown`` and
    ``shutdown``: no serve thread left, and device memory back within 1 MiB
    of its value before the phase. Each ``serve.run``'s seconds and each
-   sub-phase's are printed.
+   sub-phase's are printed;
+17. training plane (``ray_tpu_torch.train.TorchTrainer`` on
+   ``init(num_cpus=8)``): (a) phase 9's model, weights and batch in one
+   ``use_gpu`` worker on the ``nccl`` group, whose loop builds
+   ``make_lm_train_step`` on ``session.get_mesh()`` (a ``data=1`` mesh over
+   a world of one) and feeds ``session.shard_batch``: 1 + 5 steps, each
+   reported, every third with the full f32 state (parameters and AdamW
+   moments, 3.2 GB) checkpointed into the git-ignored build/trainer (two
+   kept; the free space is checked first, and the directory deleted at
+   the end); losses finite and falling, 2 x n_layers / n_layers /
+   n_layers launches every step, the committed state restored byte for
+   byte against the host copy of its step; the trainer's step beside
+   phase 9's, ``session.report`` ms, the checkpoint's enqueue ms, commit
+   s, bytes and restore s, and the goodput ledger; (b) phase 8's model and
+   batch, a checkpoint every step, the first attempt raising after step
+   3: the restart resumes from the last commit (AdamW step restored, the
+   step count carried, restart downtime accounted), steps 4-6 match an
+   uninterrupted run at ``TRAIN_RTOL``, and device memory after ``fit``
+   equals its value before; (c) two ``num_gpus=0.5`` workers on half of
+   phase 8's batch each, allreducing gradients over the ``nccl`` group
+   folded onto the card: the trajectory matches phase 8's at
+   ``TRAIN_RTOL``, each result a new CUDA tensor of the input's dtype;
+   allreduce and step ms; (d) the ``nccl`` group over distinct cards,
+   which needs two or more (with one, the phase says it did not run).
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -126,6 +149,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -191,6 +215,10 @@ RUNTIME_CONFIG = {"flight_recorder_dir": "build/runtime/flight",
 SERVE_ROUTE = "/lm"
 SERVE_BUDGET_MS = 10_000.0
 SERVE_MEMORY_SLACK = 2**20
+# Phase 17: TorchTrainer. Its checkpoints go under the git-ignored build/
+# and are deleted at the end; a fit() that blocks longer than this fails.
+TRAINER_DIR = "build/trainer"
+TRAINER_TIMEOUT_S = 600
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -1461,6 +1489,502 @@ def bench_phase(timeout_s=BENCH_TIMEOUT_S):
     return head, sections["section_transformer"]
 
 
+# -- phase 17: TorchTrainer ---------------------------------------------------
+
+
+def _numpy_tree_to_torch(tree):
+    """A restored (numpy) checkpoint tree with its arrays as CPU tensors."""
+    from ray_tpu_torch._private.host import from_numpy
+    if isinstance(tree, dict):
+        return {k: _numpy_tree_to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy_tree_to_torch(v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return from_numpy(tree, None, "cpu")
+    return tree
+
+
+def lm_trainer_loop(config):
+    """Phase 17 (a) and (b): the training loop a user hands ``TorchTrainer``.
+    It runs in a train worker: it builds ``make_lm_train_step`` on the
+    session's mesh, starts from ``config["seed"]``'s weights or from
+    ``session.get_checkpoint()`` (parameters, AdamW state and step), and
+    reports every step; every ``config["ckpt_every"]``-th report carries the
+    full state. ``config["fail_at"]``: the first attempt raises after that
+    step's report. ``config["timings"]``: a list the loop appends each
+    report's host-clock ms to (the workers are threads of this process)."""
+    from torch.distributed.tensor import DTensor
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.train import make_lm_train_step, session
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    device = torch.device(config["device"])
+    cfg = TransformerConfig(**config["width"], dtype=config["dtype"],
+                            use_flash=True)
+    mesh = session.get_mesh()
+    if device.type == "cuda":
+        # the mesh rule: one worker granted a whole card
+        assert mesh is not None and set(mesh.shape.values()) == {1}, mesh
+    init_fn, step_fn, shard = make_lm_train_step(cfg, mesh, device=device)
+    restored = session.get_checkpoint()
+    if restored is None:
+        state = init_fn(torch.Generator(device=device).manual_seed(
+            config["seed"]))
+        start = 0
+    else:
+        saved = _numpy_tree_to_torch(restored.to_dict())
+        state = init_fn(params=saved["params"])
+        for s in saved["opt"]["state"].values():
+            # the engine stores a 0-d leaf as shape (1,), as the JAX
+            # package's does (np.ascontiguousarray)
+            s["step"] = s["step"].reshape(())
+        state[1].load_state_dict(saved["opt"])
+        start = int(saved["step"])
+        adam_steps = {float(s["step"]) for s in state[1].state.values()}
+        assert adam_steps == {float(start)}, (adam_steps, start)
+    tokens = (shard if mesh is None else session.shard_batch)(
+        config["tokens"])
+    for step in range(start + 1, config["steps"] + 1):
+        before = launch_counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        loss = metrics["loss"].item()
+        grad_norm = metrics["grad_norm"].item()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launched = tuple(a - b for a, b in zip(launch_counts(fa), before))
+        ckpt = None
+        if step % config["ckpt_every"] == 0:
+            params, opt = state
+            ckpt = Checkpoint.from_dict({
+                "params": transformer._tree_map(
+                    lambda p: p.to_local() if isinstance(p, DTensor) else p,
+                    params),
+                "opt": opt.state_dict(), "step": step})
+        t1 = time.perf_counter()
+        session.report({"step": step, "loss": loss, "grad_norm": grad_norm,
+                        "step_ms": step_ms, "launches": launched,
+                        "resumed_from": start}, checkpoint=ckpt)
+        config["timings"].append((step, ckpt is not None,
+                                  (time.perf_counter() - t1) * 1e3))
+        if step == config.get("fail_at") and restored is None:
+            raise RuntimeError(f"simulated worker crash after step {step}")
+
+
+def _count_params(shapes) -> int:
+    if isinstance(shapes, dict):
+        return sum(_count_params(v) for v in shapes.values())
+    return math.prod(shapes)
+
+
+def _chunk_bytes(root: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in (root / "chunks").rglob("*")
+               if f.is_file())
+
+
+def _perf_mean_ms(snap, name):
+    h = snap["hists"].get(name)
+    return None if h is None else h["sum_ms"] / max(1, sum(h["counts"]))
+
+
+def _assert_same_bytes(got, want, path="state"):
+    """``got`` (restored numpy tree) holds ``want``'s (host tensor tree)
+    values byte for byte, dtype and shape included (a 0-d leaf comes back
+    as shape (1,): the engine stores it so, as the JAX package's does)."""
+    from ray_tpu_torch._private.host import to_numpy
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), path
+        for k in want:
+            _assert_same_bytes(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same_bytes(g, w, f"{path}/{i}")
+    elif isinstance(want, torch.Tensor):
+        w = to_numpy(want)
+        shape = (1,) if w.ndim == 0 else w.shape
+        assert got.dtype == w.dtype and got.shape == shape, (
+            path, got.dtype, w.dtype, got.shape, w.shape)
+        assert np.ascontiguousarray(got).tobytes() == \
+            np.ascontiguousarray(w).tobytes(), path
+    else:
+        assert got == want, (path, got, want)
+
+
+def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
+                       width=SERVE_WIDTH, batch=TRAIN_BATCH,
+                       steps=TRAIN_STEPS):
+    """Phase 17 (a): phase 9's model, weights and batch trained by
+    ``TorchTrainer`` in one ``use_gpu`` worker on the ``nccl`` group, 1 + 5
+    steps, the full state checkpointed at every third report (two kept);
+    then the committed state restored and held against the host copy taken
+    at that step. Returns the launches of the run."""
+    from ray_tpu_torch.air import (Checkpoint, CheckpointConfig, RunConfig,
+                                   ScalingConfig)
+    from ray_tpu_torch.checkpoint import list_manifest_names, read_manifest
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.observability import goodput, perf
+    from ray_tpu_torch.train import TorchTrainer
+
+    cfg = TransformerConfig(**width, dtype=torch.bfloat16, use_flash=True)
+    assert cfg.remat
+    n = cfg.n_layers
+    per_step = (2 * n, n, n)
+    n_params = _count_params(transformer.param_shapes(cfg))
+    state_bytes = 3 * 4 * n_params       # f32 parameters and two moments
+    free = shutil.disk_usage(root.parent).free
+    # two commits kept, a reported state spilled by the object store (it
+    # is larger than the store), and slack
+    need = 3 * state_bytes + 2**31
+    if free < need:
+        raise RuntimeError(
+            f"phase 17 (a) keeps two checkpoints of {state_bytes / 1e9:.2f} "
+            f"GB: it needs {need / 1e9:.2f} GB free under {root.parent}, "
+            f"which has {free / 1e9:.2f} GB")
+    timings = []
+    config = dict(width=width, dtype=torch.bfloat16, device=str(device),
+                  seed=SEED, steps=1 + steps, ckpt_every=3, timings=timings,
+                  tokens=np.random.default_rng(SEED + 4).integers(
+                      0, width["vocab_size"], size=batch))
+    trainer = TorchTrainer(
+        lm_trainer_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=1,
+                                     use_gpu=device.type == "cuda"),
+        run_config=RunConfig(name="full", storage_path=str(root),
+                             checkpoint_config=CheckpointConfig(
+                                 num_to_keep=2)),
+        results_timeout_s=TRAINER_TIMEOUT_S)
+    perf_was = perf.ENABLED
+    perf.enable()
+    perf.reset()
+    goodput.reset()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts(fa)
+    snap, ledger = perf.snapshot(), goodput.snapshot()
+    if not perf_was:
+        perf.disable()
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    assert [m["step"] for m in hist] == list(range(1, steps + 2)), hist
+    losses = [m["loss"] for m in hist]
+    norms = [m["grad_norm"] for m in hist]
+    assert all(np.isfinite(losses + norms)), (losses, norms)
+    assert losses[-1] < losses[0], losses
+    assert all(m["launches"] == per_step for m in hist), \
+        [m["launches"] for m in hist]
+    assert launches == tuple((steps + 1) * c for c in per_step), launches
+    step_ms = statistics.median(m["step_ms"] for m in hist[1:])
+    report_ms = [ms for _, saved, ms in timings if not saved]
+    enqueue_ms = [ms for _, saved, ms in timings if saved]
+    # (a) the committed state, restored, against the host copy of step 6
+    ckpt_root = root / "full" / "checkpoints"
+    names = list_manifest_names(str(ckpt_root))
+    manifests = [read_manifest(str(ckpt_root), nm) for nm in names]
+    # the engine numbers commits by reported checkpoint: steps 3 and 6
+    assert sorted(m.step for m in manifests) == [1, 2], [m.step for m in
+                                                         manifests]
+    t0 = time.perf_counter()
+    restored = Checkpoint.from_manifest(str(ckpt_root)).to_dict()
+    restore_s = time.perf_counter() - t0
+    want = result.checkpoint.to_dict()
+    assert want["step"] == 6 and restored["step"] == 6
+    _assert_same_bytes(restored, want)
+    commit_bytes = [sum(e.nbytes for s in m.shards for e in s.arrays)
+                    for m in manifests]
+    cats = ledger["jobs"]["default"]["cats"]
+    log(f"[trainer] (a) {free / 1e9:.1f} GB free under {root.parent} at the "
+        f"start; TorchTrainer, 1 use_gpu worker on the nccl group, "
+        f"mesh data=1: bf16, {n_params / 1e6:.1f} M parameters, {n} layers, "
+        f"remat, batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
+        f"{norms}; launches a step {per_step} (forward, dq, dkv), {launches} "
+        f"in {steps + 1} steps; fit() {fit_s:.1f} s")
+    log(f"[times] {card}: TorchTrainer bf16 step {step_ms:.3f} ms (median of "
+        f"{steps}; steps in ms: "
+        + ", ".join(f"{m['step_ms']:.1f}" for m in hist)
+        + f"), phase 9's direct step {phase9_ms:.3f} ms in this run; "
+        f"session.report {statistics.median(report_ms):.3f} ms without a "
+        f"checkpoint (median of {len(report_ms)}), "
+        + ", ".join(f"{ms:.1f}" for ms in enqueue_ms)
+        + " ms with one (the host snapshot and the engine's enqueue)")
+    log(f"[times] {card}: checkpoint of {state_bytes / 1e9:.3f} GB (f32 "
+        f"parameters and AdamW moments): engine enqueue mean "
+        f"{_perf_mean_ms(snap, 'train.ckpt_enqueue'):.1f} ms, commit (hash, "
+        f"write, manifest) mean {_perf_mean_ms(snap, 'ckpt.save') / 1e3:.3f}"
+        f" s, hash per chunk mean {_perf_mean_ms(snap, 'ckpt.hash'):.1f} ms,"
+        f" write per chunk mean {_perf_mean_ms(snap, 'ckpt.write'):.1f} ms; "
+        f"bytes per commit {commit_bytes}, on disk {_chunk_bytes(ckpt_root)}"
+        f"; restore of step 6 {restore_s:.3f} s, byte for byte equal to the "
+        f"host copy taken at that step")
+    log(f"[trainer] (a) goodput ledger (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(cats.items()))
+        + f"; compiles {ledger['jobs']['default']['compile_count']}")
+    return launches
+
+
+def trainer_restart_phase(rt, fa, device, root, width=PARITY_WIDTH,
+                          batch=PARITY_BATCH, steps=6, fail_at=3):
+    """Phase 17 (b): phase 8's model, weights and batch in one ``use_gpu``
+    worker, a checkpoint at every report; the first attempt raises after
+    step ``fail_at``'s report and the trainer restarts it from the last
+    committed manifest. Steps after the restart follow an uninterrupted
+    direct run at ``TRAIN_RTOL``, and device memory returns to its value
+    before ``fit``. Returns the launches of the run."""
+    from ray_tpu_torch.air import (CheckpointConfig, FailureConfig,
+                                   RunConfig, ScalingConfig)
+    from ray_tpu_torch.checkpoint import list_manifest_names, read_manifest
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.observability import goodput
+    from ray_tpu_torch.train import TorchTrainer
+
+    flash, params, tokens = parity_inputs(device, width, batch)
+    want = train_trajectory(flash, params, tokens, steps, device)
+    del params
+    per_step = ((2 if flash.remat else 1) * width["n_layers"],
+                width["n_layers"], width["n_layers"])
+    free_device_caches()
+    before = torch.cuda.memory_allocated(device)
+    config = dict(width=width, dtype=torch.float32, device=str(device),
+                  seed=SEED + 3, steps=steps, ckpt_every=1, fail_at=fail_at,
+                  timings=[], tokens=tokens)
+    trainer = TorchTrainer(
+        lm_trainer_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=1,
+                                     use_gpu=device.type == "cuda"),
+        run_config=RunConfig(
+            name="restart", storage_path=str(root),
+            failure_config=FailureConfig(max_failures=1),
+            checkpoint_config=CheckpointConfig(num_to_keep=2)),
+        results_timeout_s=TRAINER_TIMEOUT_S)
+    goodput.reset()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    result = trainer.fit()
+    launches = launch_counts(fa)
+    downtime = goodput.snapshot()["jobs"]["default"]["cats"].get(
+        "restart_downtime", 0.0)
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    first = [m for m in hist if m["resumed_from"] == 0]
+    resumed = [m for m in hist if m["resumed_from"] > 0]
+    assert [m["step"] for m in first] == list(range(1, fail_at + 1)), hist
+    start = resumed[0]["resumed_from"]
+    assert 1 <= start <= fail_at, start
+    assert [m["step"] for m in resumed] == list(range(start + 1, steps + 1))
+    assert all(m["launches"] == per_step for m in hist), hist
+    assert downtime > 0.0, downtime
+    ckpt_root = root / "restart" / "checkpoints"
+    kept = sorted(read_manifest(str(ckpt_root), nm).step
+                  for nm in list_manifest_names(str(ckpt_root)))
+    # base_step carried: the resumed attempt numbers its saves after the
+    # committed one, so the newest commit is the last step
+    assert kept[-1] == steps, kept
+    got = {m["step"]: (m["loss"], m["grad_norm"]) for m in resumed}
+    after = [got[s] for s in range(fail_at + 1, steps + 1)]
+    np.testing.assert_allclose(after, want[fail_at:], rtol=TRAIN_RTOL)
+    worst = max(abs(g - w) / abs(w) for pair_g, pair_w in
+                zip(after, want[fail_at:]) for g, w in zip(pair_g, pair_w))
+    del result, trainer, config
+    free_device_caches()
+    after_bytes = torch.cuda.memory_allocated(device)
+    assert abs(after_bytes - before) <= SERVE_MEMORY_SLACK, (before,
+                                                             after_bytes)
+    log(f"[trainer] (b) failure and restart, f32, {width['n_layers']} "
+        f"layers, batch {batch[0]} x {batch[1]}, a checkpoint every report: "
+        f"the first attempt raised after step {fail_at}; the restart "
+        f"resumed from the committed step {start} (AdamW step restored) "
+        f"after {downtime:.3f} s of restart downtime; kept commits {kept}; "
+        f"(loss, grad norm) of steps {fail_at + 1}-{steps} {after} vs an "
+        f"uninterrupted run {want[fail_at:]}, largest relative difference "
+        f"{worst:.3g} (rtol {TRAIN_RTOL}); device memory {before} bytes "
+        f"before fit(), {after_bytes} after")
+    return launches
+
+
+def halves_loop(config):
+    """Phase 17 (c): one of two workers sharing the card. Each trains phase
+    8's model on its half of phase 8's batch, allreduces its gradients on
+    the ``nccl`` group (SUM, then / 2), steps AdamW, and reports the
+    allreduce's result pointer, dtype and device beside its times."""
+    from ray_tpu_torch import collective
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.train import adamw, session
+
+    rank, world = session.get_world_rank(), session.get_world_size()
+    group = session.get_collective_group_name()
+    assert session.get_mesh() is None      # threads share one process
+    device = torch.device(config["device"])   # a half grant names no card
+    cfg = TransformerConfig(**config["width"], dtype=torch.float32,
+                            use_flash=True)
+    params = transformer._tree_map(
+        lambda t: t.detach().to(device, torch.float32, copy=True)
+        .requires_grad_(True), config["params"])
+    leaves = transformer.leaves(params)
+    opt = adamw()(leaves)
+    tokens = torch.as_tensor(config["tokens"][rank::world]).to(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    for step in range(1, config["steps"] + 1):
+        t0 = time.perf_counter()
+        loss = transformer.loss_fn(params, tokens, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().reshape(1)])
+        sync()
+        t1 = time.perf_counter()
+        summed = collective.allreduce(flat, group)
+        sync()
+        allreduce_ms = (time.perf_counter() - t1) * 1e3
+        mean = summed / world
+        with torch.no_grad():
+            offset = 0
+            for p in leaves:
+                p.grad = mean[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
+            grad_norm = mean[:-1].norm().item()
+            opt.step()
+            for p in leaves:
+                p.grad = None
+        sync()
+        session.report({
+            "step": step, "loss": mean[-1].item(), "grad_norm": grad_norm,
+            "allreduce_ms": allreduce_ms,
+            "step_ms": (time.perf_counter() - t0) * 1e3,
+            "values": flat.numel(),
+            "out": (summed.data_ptr(), str(summed.dtype), str(summed.device)),
+            "in": (flat.data_ptr(), str(flat.dtype), str(flat.device))})
+
+
+def trainer_halves_phase(rt, fa, device, card, parity_want,
+                         width=PARITY_WIDTH, batch=PARITY_BATCH,
+                         steps=PARITY_STEPS):
+    """Phase 17 (c): two workers of ``num_gpus=0.5`` on one card, the
+    ``nccl`` group folding both ranks onto it: the allreduced trajectory
+    follows phase 8's one-worker full-batch run at ``TRAIN_RTOL``. Returns
+    the launches of the run."""
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.train import TorchTrainer
+
+    flash, params, tokens = parity_inputs(device, width, batch)
+    config = dict(width=width, device=str(device), params=params,
+                  tokens=tokens, steps=steps)
+    trainer = TorchTrainer(
+        halves_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(
+            num_workers=2, resources_per_worker=(
+                {"CPU": 1, "GPU": 0.5} if device.type == "cuda"
+                else {"CPU": 1})),
+        results_timeout_s=TRAINER_TIMEOUT_S)
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    result = trainer.fit()
+    launches = launch_counts(fa)
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    assert len(hist) == 2 * steps, hist
+    by_step = collections.defaultdict(list)
+    for m in hist:
+        by_step[m["step"]].append(m)
+    got = []
+    for s in range(1, steps + 1):
+        ranks = by_step[s]
+        assert len(ranks) == 2, ranks
+        for m in ranks:
+            # a CUDA tensor of the input's dtype, on the input's device
+            assert m["out"][1:] == m["in"][1:], m
+            assert m["out"][2].startswith(device.type), m
+        outs = {m["out"][0] for m in ranks}
+        assert len(outs) == 2 and not outs & {m["in"][0] for m in ranks}, \
+            ranks                   # no rank's output aliases another's
+        assert ranks[0]["loss"] == ranks[1]["loss"], ranks
+        got.append((ranks[0]["loss"], ranks[0]["grad_norm"]))
+    np.testing.assert_allclose(got, parity_want, rtol=TRAIN_RTOL)
+    n = width["n_layers"]
+    per_step = ((2 if flash.remat else 1) * n, n, n)
+    assert launches == tuple(2 * steps * c for c in per_step), launches
+    ar = [m["allreduce_ms"] for m in hist]
+    st = [m["step_ms"] for m in hist]
+    log(f"[trainer] (c) two num_gpus=0.5 workers on one card, nccl group "
+        f"folded onto {device}: (loss, grad norm) {got} vs phase 8's "
+        f"one-worker full batch {parity_want}, rtol {TRAIN_RTOL}; each "
+        f"result a new {hist[0]['out'][1]} tensor on {hist[0]['out'][2]}")
+    log(f"[times] {card}: two half-card workers, f32, {n} layers, batch 1 x "
+        f"{batch[1]} each: allreduce of {hist[0]['values']} f32 values {statistics.median(ar):.3f} ms (synchronized, median "
+        f"of {len(ar)}: " + ", ".join(f"{v:.2f}" for v in ar)
+        + f"), step {statistics.median(st):.3f} ms (median of {len(st)})")
+    return launches
+
+
+def nccl_distinct_phase(device):
+    """Phase 17 (d): the nccl group over distinct cards, one rank per card
+    (one ``torch.cuda.nccl`` call per op). It needs two or more cards."""
+    from ray_tpu_torch import collective
+    n = min(torch.cuda.device_count(), 4) if device.type == "cuda" else 1
+    if n < 2:
+        log(f"[trainer] (d) not run: the nccl group over distinct cards "
+            f"needs two or more, and this machine has {n}")
+        return
+    outs = [None] * n
+    errors = []
+
+    def rank_body(r):
+        try:
+            dev = torch.device("cuda", r)
+            collective.init_collective_group(n, r, "nccl", "distinct")
+            x = torch.full((1024,), float(r + 1), device=dev)
+            outs[r] = (collective.allreduce(x, "distinct"),
+                       collective.allgather(x, "distinct"))
+            collective.destroy_collective_group("distinct")
+        except Exception as e:      # surfaced below, after every join
+            errors.append(e)
+
+    threads = [threading.Thread(target=rank_body, args=(r,))
+               for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errors and all(o is not None for o in outs), errors
+    total = n * (n + 1) / 2
+    for r, (red, gathered) in enumerate(outs):
+        assert red.device == torch.device("cuda", r), red.device
+        assert torch.all(red == total).item()
+        assert gathered.shape == (n, 1024)
+    log(f"[trainer] (d) nccl group over {n} distinct cards: allreduce and "
+        f"allgather right on every rank")
+
+
+def trainer_phase(fa, device, card, phase9_ms, parity_want):
+    """Phase 17: ``TorchTrainer`` on ``init(num_cpus=8)`` with the card
+    detected: (a) full width, (b) failure and restart, (c) two workers
+    sharing the card, (d) distinct cards (needs two). The checkpoint
+    directory is made under the git-ignored build/ and deleted at the end.
+    Returns the launches of (a), (b) and (c), summed."""
+    import ray_tpu_torch as rt
+    root = REPO / TRAINER_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    config = {k: str(REPO / v) for k, v in RUNTIME_CONFIG.items()}
+    rt.init(num_cpus=8, _system_config=config)
+    try:
+        res = rt.cluster_resources()
+        assert res.get("GPU", 0) == torch.cuda.device_count(), res
+        totals = [trainer_full_phase(rt, fa, device, card, phase9_ms, root)]
+        torch.cuda.empty_cache()
+        totals.append(trainer_restart_phase(rt, fa, device, root))
+        totals.append(trainer_halves_phase(rt, fa, device, card,
+                                           parity_want))
+        nccl_distinct_phase(device)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    return tuple(map(sum, zip(*totals)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1617,7 +2141,15 @@ def main() -> int:
                       runtime["actor_rps"])
     log(f"[serve-plane] phase 16 in {time.perf_counter() - t0:.1f} s")
 
-    fwd_launches, dq_launches, dkv_launches = trained["launches"]
+    # 17. TorchTrainer: the training path from GPU train workers (launches
+    # counted in each of (a)-(c))
+    t0 = time.perf_counter()
+    free_device_caches()
+    trainer_launches = trainer_phase(fa, device, card, step_ms, parity)
+    log(f"[trainer] phase 17 in {time.perf_counter() - t0:.1f} s")
+
+    fwd_launches, dq_launches, dkv_launches = (
+        a + b for a, b in zip(trained["launches"], trainer_launches))
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",

@@ -3,8 +3,9 @@
 The reference implements its runtime kernel in C++ (SURVEY §2.1); the
 pieces here are the host-runtime equivalents that benefit from native code in
 a host-granular runtime: the shared-memory object store arena
-(``object_store.cc`` — plasma's role) and the scheduling policy kernels
-(``scheduling.cc``), built lazily with the system g++ into the git-ignored
+(``object_store.cc`` — plasma's role), the scheduling policy kernels
+(``scheduling.cc``) and the collective compression tier's block
+quantization (``quant.cc``), built lazily with the system g++ into the git-ignored
 ``build/ray_tpu_torch/native/``. Without g++ the store keeps its payloads
 on the Python heap and the scheduler runs its Python policy.
 """

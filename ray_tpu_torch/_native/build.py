@@ -7,8 +7,8 @@ of the checkout (git-ignored) and rebuilt when the source is newer. No
 pybind11 — the libraries expose a C ABI consumed via ctypes.
 
 The JAX package's protobuf-linked binaries (the C++ state service and the
-C++ worker demo) and its quantization kernels belong to the multi-process
-runtime and to ``collective/``, which are not ported yet.
+C++ worker demo) belong to the multi-process runtime, which is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -48,9 +48,19 @@ class NativeBuildError(RuntimeError):
     pass
 
 
-def load_native_library(name: str) -> Optional[ctypes.CDLL]:
+# The quant kernels lose to numpy at -O2: the vectorizer needs these.
+QUANT_OPT_FLAGS = ("-O3", "-march=native", "-ffast-math", "-funroll-loops")
+
+
+def load_native_library(name: str,
+                        opt_flags: tuple = ()) -> Optional[ctypes.CDLL]:
     """Compile ``<name>.cc`` (if stale) and dlopen it. Returns None if no
-    toolchain is available — callers fall back to pure-Python paths."""
+    toolchain is available — callers fall back to pure-Python paths.
+
+    ``opt_flags`` replaces the default ``-O2`` for sources that need the
+    vectorizer. If the toolchain rejects them (e.g. ``-march=native`` on an
+    exotic target) the build retries at -O2 before giving up — a slower
+    kernel beats no kernel."""
     with _LOCK:
         if name in _CACHE:
             return _CACHE[name]
@@ -62,10 +72,19 @@ def load_native_library(name: str) -> Optional[ctypes.CDLL]:
                 os.makedirs(_BUILD_DIR, exist_ok=True)
                 # Per-process temporary: test workers may build at once.
                 tmp = f"{so}.{os.getpid()}.tmp"
-                subprocess.run(["g++", "-O2", "-std=c++17", "-shared",
-                                "-fPIC", "-pthread", *_sanitize_flags(),
-                                "-o", tmp, src],
-                               check=True, capture_output=True, text=True)
+                attempts = [list(opt_flags), ["-O2"]] if opt_flags \
+                    else [["-O2"]]
+                for i, flags in enumerate(attempts):
+                    try:
+                        subprocess.run(["g++", *flags, "-std=c++17",
+                                        "-shared", "-fPIC", "-pthread",
+                                        *_sanitize_flags(), "-o", tmp, src],
+                                       check=True, capture_output=True,
+                                       text=True)
+                        break
+                    except subprocess.CalledProcessError:
+                        if i == len(attempts) - 1:
+                            raise
                 os.replace(tmp, so)
             lib = ctypes.CDLL(so)
         except (OSError, subprocess.CalledProcessError) as e:

@@ -224,7 +224,7 @@ _config.define("object_push_window_bytes", int, 32 * 1024 * 1024,
                "per-peer in-flight push budget (backpressure window)")
 
 # -- Collectives / device plane -------------------------------------------------
-_config.define("collective_default_backend", str, "xla", "xla | cpu")
+_config.define("collective_default_backend", str, "nccl", "nccl | cpu")
 _config.define("collective_compression", str, "none",
                "default wire compression for collective groups created "
                "without an explicit CollectiveConfig: none | q8 (block-wise "

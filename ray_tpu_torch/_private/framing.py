@@ -25,6 +25,7 @@ and ``object_store.py`` (arena receive slots) both decode through it.
 
 from __future__ import annotations
 
+import io
 import pickle
 import struct as _struct
 from typing import Any, List, Tuple
@@ -52,11 +53,17 @@ def frame_layout(header_len: int, buf_lens: List[int], trace: bytes = b""):
     return off, header_off, buf_offs, idx
 
 
-def _pickle_oob(value: Any):
-    """-> (header_bytes, [byte-cast readonly buffer views])."""
+def _pickle_oob(value: Any, pickler=None):
+    """-> (header_bytes, [byte-cast readonly buffer views]). ``pickler``:
+    a ``pickle.Pickler`` class to use in place of cloudpickle."""
     pbufs: List[Any] = []
-    header = cloudpickle.dumps(value, protocol=5,
-                               buffer_callback=pbufs.append)
+    if pickler is None:
+        header = cloudpickle.dumps(value, protocol=5,
+                                   buffer_callback=pbufs.append)
+    else:
+        out = io.BytesIO()
+        pickler(out, protocol=5, buffer_callback=pbufs.append).dump(value)
+        header = out.getvalue()
     raws = []
     for b in pbufs:
         try:
@@ -66,9 +73,10 @@ def _pickle_oob(value: Any):
     return header, raws
 
 
-def dumps_framed(value: Any, trace: bytes = b"") -> bytearray:
-    """Serialize into one framed payload (single copy per array)."""
-    header, raws = _pickle_oob(value)
+def dumps_framed(value: Any, trace: bytes = b"", pickler=None) -> bytearray:
+    """Serialize into one framed payload (single copy per array).
+    ``pickler``: as for ``_pickle_oob``."""
+    header, raws = _pickle_oob(value, pickler)
     total, hoff, boffs, idx = frame_layout(len(header),
                                            [r.nbytes for r in raws], trace)
     out = bytearray(total)
@@ -83,8 +91,9 @@ def dumps_framed(value: Any, trace: bytes = b"") -> bytearray:
     return out
 
 
-def loads_framed(view) -> Tuple[Any, bool]:
-    """Decode a frame from ``view`` (bytes or memoryview).
+def loads_framed(view, unpickler=None) -> Tuple[Any, bool]:
+    """Decode a frame from ``view`` (bytes or memoryview); ``unpickler``, a
+    ``pickle.Unpickler`` class, resolves the globals it names.
 
     Returns ``(value, zero_copy)``: when ``zero_copy`` the value's arrays
     reference ``view`` directly — the caller must keep the backing alive
@@ -92,7 +101,10 @@ def loads_framed(view) -> Tuple[Any, bool]:
     mv = memoryview(view).toreadonly()  # sealed objects are immutable —
     # a writable view into shared arena pages must never leak to users
     if mv[:4] != FRAME_MAGIC:
-        return pickle.loads(mv), False  # legacy plain-pickle payload
+        # legacy plain-pickle payload
+        if unpickler is None:
+            return pickle.loads(mv), False
+        return unpickler(io.BytesIO(bytes(mv))).load(), False
     (idx_len,) = _struct.unpack(">I", mv[4:8])
     header_len, nbuf = _struct.unpack_from(">II", mv, 8)
     buf_lens = list(_struct.unpack_from(f">{nbuf}Q", mv, 16))
@@ -106,7 +118,9 @@ def loads_framed(view) -> Tuple[Any, bool]:
         off = (off + ln + 63) & ~63
     header = bytes(mv[hoff:hoff + header_len])
     buffers = [mv[off:off + ln] for off, ln in zip(boffs, buf_lens)]
-    return pickle.loads(header, buffers=buffers), nbuf > 0
+    if unpickler is None:
+        return pickle.loads(header, buffers=buffers), nbuf > 0
+    return unpickler(io.BytesIO(header), buffers=buffers).load(), nbuf > 0
 
 
 def frame_trace(view) -> str:

@@ -39,6 +39,7 @@ host-granular GPU runtime:
 from __future__ import annotations
 import logging
 
+import copy
 import io
 import os
 import pickle
@@ -132,6 +133,19 @@ def _checked_device_value(object_id: ObjectID, entry: _Entry):
         # while this stream's queued work still reads it.
         value.record_stream(stream)
     return value
+
+
+def _raisable(error: BaseException) -> BaseException:
+    """A copy of a stored error, for ``get`` to raise. Raising attaches the
+    caller's frames to the exception's traceback, and a caller's frame holds
+    the ObjectRef whose entry holds the error: raising the stored object
+    itself would close a cycle through the store that pins the error, and
+    every frame its cause's traceback holds (a failed task's tensors
+    included), for the life of the process."""
+    try:
+        return copy.copy(error)
+    except Exception:  # raylint: allow(swallow) an error that cannot be copied is raised as stored
+        return error
 
 
 class ObjectLostError(Exception):
@@ -405,7 +419,7 @@ class ObjectStore:
             if entry.kind == KIND_SPILLED:
                 self._restore_locked(object_id, entry)
             if entry.kind == KIND_ERROR:
-                raise entry.data
+                raise _raisable(entry.data)
             if entry.kind == KIND_PICKLED:
                 if entry.native:
                     key = self._native_key(object_id)
@@ -530,7 +544,14 @@ class ObjectStore:
         entry.kind = KIND_PICKLED
         self._host_bytes += entry.size_bytes
         self._num_restored += 1
-        self._maybe_spill_locked()
+        # Pinned for the reader: an object larger than the spill threshold
+        # would otherwise be spilled again at once, and ``get`` would hand
+        # back its emptied payload (None).
+        entry.pin_count += 1
+        try:
+            self._maybe_spill_locked()
+        finally:
+            entry.pin_count -= 1
 
     # -- introspection --------------------------------------------------------
 

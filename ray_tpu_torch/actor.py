@@ -185,9 +185,10 @@ def _inject_builtin_methods(cls: type) -> type:
     if not hasattr(cls, "__ray_collective_init__"):
         def _collective_init(self, world_size, rank, backend, group_name,
                              devices=None, config=None):
-            raise NotImplementedError(
-                "collective groups need collective/, which is not ported "
-                "yet (ROADMAP Queue 1: collective/)")
+            from ray_tpu_torch.collective import init_collective_group
+            init_collective_group(world_size, rank, backend, group_name,
+                                  devices, config)
+            return rank
         cls.__ray_collective_init__ = _collective_init
     if not hasattr(cls, "__ray_terminate__"):
         def _terminate(self):

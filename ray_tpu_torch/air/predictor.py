@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch._private.host import to_numpy
 from ray_tpu_torch.air.checkpoint import Checkpoint
 
 
@@ -86,19 +87,5 @@ def _tree_to_numpy(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return _to_numpy(tree.cpu())
+        return to_numpy(tree)
     return tree
-
-
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """``np.asarray`` of a JAX array, for a torch tensor. numpy has no
-    bfloat16: a bf16 tensor's bits come back as ``ml_dtypes.bfloat16`` (what
-    JAX returns) where ``ml_dtypes`` imports, and as float32 otherwise (the
-    same values, exactly)."""
-    if t.dtype != torch.bfloat16:
-        return t.numpy()
-    try:
-        import ml_dtypes
-    except ImportError:
-        return t.float().numpy()
-    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)

@@ -11,8 +11,11 @@ contract: ``(init_fn, step_fn, shard_batch)``, with
 - ``opt_state`` is the ``torch.optim.Optimizer`` over the parameter
   leaves, and ``step_fn`` updates params and optimizer in place and returns
   the same state: the counterpart of ``donate_argnums=(0,)``;
-- no ``jit``: PyTorch runs eagerly. ``goodput.instrument_jit`` waits for
-  the port of ``observability/``.
+- no ``jit``: PyTorch runs eagerly. ``step_fn`` is wrapped in
+  ``goodput.instrument_jit`` as the reference's is, so its first call per
+  (state, tokens) signature lands in the goodput ledger's ``compile``
+  category: here that call carries the kernels' lazy build and the
+  allocator's warm-up.
 
 With a mesh, the state is sharded: every parameter, its gradient and its
 AdamW moments are DTensors placed by ``transformer.logical_axes`` and the
@@ -49,6 +52,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.observability import goodput
 from ray_tpu_torch.parallel import (ShardingRules, batch_sharding,
                                     pipeline_apply, shard_pytree)
 from ray_tpu_torch.parallel.sharding import place_local
@@ -166,7 +170,11 @@ def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
         return place_local(tokens, mesh,
                            batch_sharding(mesh, sharded.rules, ndim=2))
 
-    return init_fn, step_fn, shard_batch
+    # Goodput compile detection: the first call per (state, tokens)
+    # signature lands in the ledger's ``compile`` category; a new tokens
+    # shape mid-run is a recompile (reference ``step.py:100-106``).
+    return init_fn, goodput.instrument_jit(step_fn, name="train.step_fn"), \
+        shard_batch
 
 
 class _Sharded:

@@ -241,3 +241,66 @@ def test_flash_kernel_rejects_misaligned_bf16():
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_fwd(odd, k, v, True)
     assert fa.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["allreduce", "reduce", "broadcast",
+                                "allgather", "reducescatter", "sendrecv"])
+def test_nccl_group_over_distinct_cards(op):
+    """The ``nccl`` collective group with one rank per card: each op is one
+    ``torch.cuda.nccl`` call over the ranks' tensors (send and recv are
+    peer copies), each result a new tensor on its rank's card."""
+    import threading
+    from ray_tpu_torch import collective
+    _cuda_or_skip()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip(f"needs two or more cards, this machine has {n}")
+    name = f"distinct-{op}"
+    xs = [torch.arange(8 * n, dtype=torch.float32, device=f"cuda:{r}") + r
+          for r in range(n)]
+    outs, errors = [None] * n, []
+
+    def rank(r):
+        try:
+            collective.init_collective_group(n, r, "nccl", name)
+            if op == "allreduce":
+                outs[r] = collective.allreduce(xs[r], name)
+            elif op == "reduce":
+                outs[r] = collective.reduce(xs[r], 1, name)
+            elif op == "broadcast":
+                outs[r] = collective.broadcast(xs[r], 1, name)
+            elif op == "allgather":
+                outs[r] = collective.allgather(xs[r], name)
+            elif op == "reducescatter":
+                outs[r] = collective.reducescatter(xs[r], name)
+            elif r == 0:
+                collective.send(xs[0], 1, name)
+            elif r == 1:
+                outs[r] = collective.recv(0, name)
+            collective.destroy_collective_group(name)
+        except Exception as e:      # raised below, after every join
+            errors.append(e)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    host = [x.cpu() for x in xs]
+    total = sum(host)
+    want = {"allreduce": [total] * n,
+            "reduce": [total if r == 1 else host[r] for r in range(n)],
+            "broadcast": [host[1]] * n,
+            "allgather": [torch.stack(host)] * n,
+            "reducescatter": list(total.chunk(n)),
+            "sendrecv": [None, host[0]] + [None] * (n - 2)}[op]
+    for r, (got, w) in enumerate(zip(outs, want)):
+        if w is None:
+            assert got is None
+            continue
+        assert got.device == torch.device("cuda", r), got.device
+        torch.testing.assert_close(got.cpu(), w)
+    ptrs = [o.data_ptr() for o in outs if o is not None]
+    assert len(set(ptrs)) == len(ptrs)
