@@ -126,7 +126,32 @@ Phases, each of which asserts:
    folded onto the card: the trajectory matches phase 8's at
    ``TRAIN_RTOL``, each result a new CUDA tensor of the input's dtype;
    allreduce and step ms; (d) the ``nccl`` group over distinct cards,
-   which needs two or more (with one, the phase says it did not run).
+   which needs two or more (with one, the phase says it did not run);
+18. multi-process runtime (``ray_tpu_torch.cluster_utils.ProcessCluster``:
+   the port's Python state service and host-daemon processes): (a) a
+   cluster of one CPU daemon (``num_cpus=4``) plus ``add_daemon(num_gpus=1)``
+   and ``init(address=cluster.address)``: ``GPU: 1.0`` in
+   ``cluster_resources()``; a ``num_gpus=1`` task runs in another process
+   whose ``CUDA_VISIBLE_DEVICES`` names the card; the seconds until each
+   daemon registered; (b) a seeded bf16 [8192, 8192] tensor made in the
+   daemon reaches the driver on its own ``cuda:0`` bit-equal to the same
+   seeded build in the driver, a driver ``put`` reaches a daemon task
+   bit-equal, a put tensor written in place is refused across processes;
+   bytes and host-clock ms of each hop (median of 5); (c) phase 5's
+   deployment in a ``num_gpus=1`` actor inside the daemon: the weights
+   ``put`` by the driver as host numpy (f32, ~1.07 GB) and fetched by the
+   actor (bytes and seconds); f32 answers to phase 5's 16 requests against
+   the dense run at 1e-3; a switch to bf16, 1 warm-up and 3 measured passes
+   from 16 threads and 3 from one, answers finite; requests/s beside phases
+   5, 15 and 16; the actor's own forward launch count (``n_layers`` per
+   batch, in the daemon's process) goes into the kernels line; (d)
+   ``kill_daemon`` of the GPU daemon: a call on the actor raises
+   ``ActorDiedError`` within the heartbeat timeout, the node is dead in the
+   state service, the card's free memory returns to within 64 MiB of its
+   value before (a), and a new ``add_daemon(num_gpus=1)`` takes the card
+   back and a fresh actor there answers one f32 batch correctly; (e)
+   ``shutdown()`` and ``cluster.shutdown()``: no daemon or state-service
+   process is left.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -219,6 +244,12 @@ SERVE_MEMORY_SLACK = 2**20
 # and are deleted at the end; a fit() that blocks longer than this fails.
 TRAINER_DIR = "build/trainer"
 TRAINER_TIMEOUT_S = 600
+# Phase 18: the multi-process runtime. A bf16 [OBJECT_SIDE]^2 tensor crosses
+# processes each way HOP_RUNS times; after the GPU daemon is killed the
+# card's free memory must come back to within PROCESS_MEMORY_SLACK of its
+# value before the phase.
+HOP_RUNS = 5
+PROCESS_MEMORY_SLACK = 64 * 2**20
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -386,6 +417,10 @@ def make_deployment(cfg, params, device):
     """User code: a deployment class over the port's serving path."""
     from ray_tpu_torch import serve
     from ray_tpu_torch.air import TorchPredictor
+    # A local, so the class body reads it from this function's closure:
+    # pickled by value (phase 18 ships this function to a daemon), the
+    # function carries only the globals its own code names.
+    buckets = BATCH_BUCKETS
 
     class LMDeployment:
         def __init__(self):
@@ -395,7 +430,7 @@ def make_deployment(cfg, params, device):
             self.batches = 0
 
         @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.01,
-                     pad_batch_to=BATCH_BUCKETS)
+                     pad_batch_to=buckets)
         def __call__(self, requests):
             self.batches += 1
             return list(self.predictor.predict(pad_requests(requests)))
@@ -819,8 +854,8 @@ def serve_plane_phase(fa, device, card, direct_rps, actor_rps,
     try:
         res = rt.cluster_resources()
         assert res.get("GPU") == torch.cuda.device_count(), res
-        serve_plane_paths(rt, serve, fa, device, card, direct_rps, actor_rps,
-                          width, n_requests)
+        rates = serve_plane_paths(rt, serve, fa, device, card, direct_rps,
+                                  actor_rps, width, n_requests)
     finally:
         t0 = time.perf_counter()
         serve.shutdown()
@@ -839,6 +874,7 @@ def serve_plane_phase(fa, device, card, direct_rps, actor_rps,
         f"{time.perf_counter() - t0:.2f} s: no serve thread left; device "
         f"memory {before} bytes before the phase, {after} after (the "
         f"replicas' weights went with their actors)")
+    return rates
 
 
 def serve_plane_paths(rt, serve, fa, device, card, direct_rps, actor_rps,
@@ -981,6 +1017,8 @@ def serve_plane_paths(rt, serve, fa, device, card, direct_rps, actor_rps,
         f"{sorted(served.values())}, answers finite CUDA tensors read on the "
         f"callers' threads; {fa.launches // n_layers} batches in one pass "
         f"({seconds:.4f} s; {time.perf_counter() - t0:.2f} s)")
+    return {"threads": n_requests / threads[0],
+            "single": n_requests / single[0]}
 
 
 def assert_grads_close(got, want, dtype, case):
@@ -1492,15 +1530,16 @@ def bench_phase(timeout_s=BENCH_TIMEOUT_S):
 # -- phase 17: TorchTrainer ---------------------------------------------------
 
 
-def _numpy_tree_to_torch(tree):
-    """A restored (numpy) checkpoint tree with its arrays as CPU tensors."""
+def _numpy_tree_to_torch(tree, device="cpu"):
+    """A numpy tree (a restored checkpoint, host weights) with its arrays
+    as tensors on ``device``."""
     from ray_tpu_torch._private.host import from_numpy
     if isinstance(tree, dict):
-        return {k: _numpy_tree_to_torch(v) for k, v in tree.items()}
+        return {k: _numpy_tree_to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_numpy_tree_to_torch(v) for v in tree)
+        return type(tree)(_numpy_tree_to_torch(v, device) for v in tree)
     if isinstance(tree, np.ndarray):
-        return from_numpy(tree, None, "cpu")
+        return from_numpy(tree, None, device)
     return tree
 
 
@@ -1985,6 +2024,360 @@ def trainer_phase(fa, device, card, phase9_ms, parity_want):
     return tuple(map(sum, zip(*totals)))
 
 
+# -- phase 18: the multi-process runtime --------------------------------------
+
+
+def seeded_bf16(side, seed, device):
+    """A bf16 [side, side] tensor from a seeded generator on ``device``: the
+    same bits in every process on the same card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(side, side, generator=gen, device=device,
+                       dtype=torch.bfloat16)
+
+
+def _torch_tree_to_numpy(tree):
+    """A parameter tree with its tensors as host numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _torch_tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_torch_tree_to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def _tree_nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_nbytes(v) for v in tree)
+    return tree.nbytes
+
+
+class TensorKeeper:
+    """User code for phase 18 (b): an actor in the GPU daemon that builds
+    the seeded tensor on its own card."""
+
+    def __init__(self, side, seed, device):
+        self.t = seeded_bf16(side, seed, device)
+
+    def tensor(self):
+        return self.t
+
+    def matches(self, x):
+        """Whether ``x`` (a driver put, fetched by this process) equals the
+        tensor built here, and the device it landed on."""
+        return torch.equal(x, self.t), str(x.device)
+
+
+class DaemonLM:
+    """User code for phase 18 (c): phase 5's deployment in an actor of the
+    GPU daemon. The f32 weights come as host numpy through the object plane
+    (``refs[0]``, fetched here and timed); ``switch`` casts them in place of
+    a rolling update, since the daemon's one card holds one such actor."""
+
+    def __init__(self, cfg, refs, device):
+        import ray_tpu_torch
+        # TF32 off for the f32 check, as in this script's process. Imported
+        # here: a ``torch.backends`` submodule named through the global
+        # ``torch`` would make this class unpicklable by value.
+        from torch.backends.cuda import matmul
+        from torch.backends import cudnn
+        matmul.allow_tf32 = False
+        cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        host = ray_tpu_torch.get(refs[0])
+        self.fetch = (time.perf_counter() - t0, _tree_nbytes(host))
+        self.device = device
+        self.params = {"float32": _numpy_tree_to_torch(host, device)}
+        self.cfg = cfg
+        self.deployment = make_deployment(cfg, self.params["float32"], device)
+        self.fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    def loaded(self):
+        """(seconds, bytes) of the weights' fetch, and where this runs."""
+        import os
+
+        import ray_tpu_torch
+        return (self.fetch, os.getpid(),
+                ray_tpu_torch.get_runtime_context().get_gpu_devices())
+
+    def switch(self, dtype_name):
+        from ray_tpu_torch.models import transformer
+        dtype = getattr(torch, dtype_name)
+        self.cfg = dataclasses.replace(self.cfg, dtype=dtype)
+        self.params[dtype_name] = transformer.cast_params(
+            self.params["float32"], dtype)
+        self.deployment = make_deployment(self.cfg, self.params[dtype_name],
+                                          self.device)
+
+    def reset_counts(self):
+        self.fa.launches = 0
+        self.deployment.batches = 0
+
+    def counts(self):
+        """(forward-kernel launches in this process, batches served) since
+        the last ``reset_counts``."""
+        return self.fa.launches, self.deployment.batches
+
+    def __call__(self, request):
+        return self.deployment(request)
+
+
+def process_runtime_phase(fa, device, card, rates, width=SERVE_WIDTH,
+                          n_requests=N_REQUESTS, side=OBJECT_SIDE, gpus=1):
+    """Phase 18: the multi-process runtime on the card. ``rates``: phases
+    5, 15 and 16's bf16 requests/s, printed beside this phase's. Returns
+    the flash forward kernel's launches counted in the daemon's process."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import ProcessCluster
+
+    free_device_caches()
+    free_before = torch.cuda.mem_get_info(device)[0]
+    t0 = time.perf_counter()
+    cluster = ProcessCluster(num_daemons=1, num_cpus=4)
+    cpu_s = time.perf_counter() - t0
+    procs = [cluster.state_proc]
+    try:
+        t0 = time.perf_counter()
+        gpu_index = len(cluster.daemons)
+        cluster.add_daemon(num_gpus=gpus)
+        gpu_s = time.perf_counter() - t0
+        procs += [d["proc"] for d in cluster.daemons]
+        rt.init(address=cluster.address)
+        try:
+            launches = process_runtime_paths(
+                rt, cluster, gpu_index, fa, device, card, rates, width,
+                n_requests, side, gpus, cpu_s, gpu_s, free_before, procs)
+        finally:
+            rt.shutdown()
+    finally:
+        cluster.shutdown()
+    # (e) nothing of the cluster outlives it
+    procs += [d["proc"] for d in cluster.daemons]
+    left = [p.pid for p in procs if p.poll() is None]
+    assert not left, left
+    log(f"[process-runtime] (e) shutdown() and cluster.shutdown(): none of "
+        f"the {len(set(procs))} state-service and daemon processes is left")
+    return launches
+
+
+def process_runtime_paths(rt, cluster, gpu_index, fa, device, card, rates,
+                          width, n_requests, side, gpus, cpu_s, gpu_s,
+                          free_before, procs):
+    """Phase 18 (a)-(d) on a live cluster, with this process its driver."""
+    import os
+
+    from ray_tpu_torch._private import worker
+
+    on_card = device.type == "cuda"
+    # (a) the GPU daemon owns the card, in a process of its own
+    res = rt.cluster_resources()
+    assert res.get("GPU", 0.0) == float(gpus), res
+    cards = cluster.daemons[gpu_index]["cards"]
+
+    @rt.remote(num_gpus=gpus)
+    def where():
+        import os as _os
+
+        import ray_tpu_torch
+        return (_os.getpid(), _os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.get_device_name() if torch.cuda.is_available()
+                else None,
+                ray_tpu_torch.get_runtime_context().get_gpu_devices())
+
+    pid, visible, name, granted = rt.get(where.remote(), timeout=300)
+    assert pid != os.getpid(), pid
+    if gpus:
+        assert visible == ",".join(cards) and granted == [
+            torch.device("cuda", 0)], (visible, cards, granted)
+        assert name == torch.cuda.get_device_name(0), name
+    log(f"[process-runtime] (a) ProcessCluster on the Python state service: "
+        f"a CPU daemon registered {cpu_s:.2f} s after the cluster's start "
+        f"(state service included), the GPU daemon "
+        f"{gpu_s:.2f} s after add_daemon(num_gpus={gpus}); "
+        f"cluster_resources() {res}; a num_gpus={gpus} task ran in pid {pid} "
+        f"(the driver is {os.getpid()}) with CUDA_VISIBLE_DEVICES={visible!r}"
+        f" on {name}, granted {granted}")
+
+    # (b) tensors between processes
+    keeper = rt.remote(num_gpus=gpus)(TensorKeeper).remote(side, SEED + 4,
+                                                            device)
+    want = seeded_bf16(side, SEED + 4, device)
+    got = rt.get(keeper.tensor.remote(), timeout=300)  # warm-up
+    nbytes = want.numel() * want.element_size()
+    from_daemon = []
+    for _ in range(HOP_RUNS):
+        t0 = time.perf_counter()
+        got = rt.get(keeper.tensor.remote(), timeout=300)
+        from_daemon.append(time.perf_counter() - t0)
+    assert got.device == want.device and torch.equal(got, want), got.device
+    to_daemon = []
+    for _ in range(HOP_RUNS):
+        ref = rt.put(want)
+        t0 = time.perf_counter()
+        equal, landed = rt.get(keeper.matches.remote(ref), timeout=300)
+        to_daemon.append(time.perf_counter() - t0)
+        assert equal, "a driver put arrived changed"
+        del ref
+    assert landed == ("cuda:0" if on_card else "cpu"), landed
+    written = want.clone()
+    ref = rt.put(written)
+    written.add_(1)
+    try:
+        rt.get(keeper.matches.remote(ref), timeout=300)
+    except rt.RayTpuError as e:
+        assert "modified in place" in str(e), e
+    else:
+        raise AssertionError("a put tensor written in place crossed over")
+    del ref, written, got
+    rt.kill(keeper)
+    log(f"[process-runtime] (b) a seeded bf16 [{side}, {side}] tensor made "
+        f"in the daemon arrived on the driver's {want.device} bit-equal to "
+        f"the same seeded build here; a driver put arrived on the daemon's "
+        f"{landed} bit-equal; a put tensor written in place was refused "
+        f"across processes")
+    log(f"[times] {card}: tensor hops of {nbytes} bytes (host clock, median "
+        f"of {HOP_RUNS}): daemon -> driver "
+        f"{statistics.median(from_daemon) * 1e3:.1f} ms, driver -> daemon "
+        f"{statistics.median(to_daemon) * 1e3:.1f} ms (a task round trip "
+        f"each)")
+    del want
+
+    # (c) phase 5's deployment in a GPU actor of the daemon
+    from ray_tpu_torch.models import transformer
+    _, lengths, requests, cfg32, params = serve_inputs(device, width,
+                                                       n_requests)
+    n_layers, n_tokens = cfg32.n_layers, int(lengths.sum())
+    host = _torch_tree_to_numpy(params)
+    t0 = time.perf_counter()
+    params_ref = rt.put(host)
+    put_s = time.perf_counter() - t0
+    server_cls = rt.remote(num_gpus=gpus, max_concurrency=n_requests)(
+        DaemonLM)
+    server = server_cls.remote(cfg32, [params_ref], device)
+    (fetch_s, fetched), server_pid, granted = rt.get(server.loaded.remote(),
+                                                     timeout=300)
+    assert server_pid == pid and fetched == _tree_nbytes(host), (
+        server_pid, fetched)
+    call = rt.ActorMethod(server, "__call__")
+    counted = 0
+
+    def counts():
+        nonlocal counted
+        launches, batches = rt.get(server.counts.remote(), timeout=60)
+        if on_card:
+            assert launches == n_layers * batches, (launches, batches)
+        counted += launches
+        return batches
+
+    def one_thread():
+        t0 = time.perf_counter()
+        answers = rt.get([call.remote(r) for r in requests], timeout=600)
+        return answers, time.perf_counter() - t0
+
+    def threads():
+        return serve_all(lambda r: rt.get(call.remote(r), timeout=600),
+                         requests)
+
+    rt.get(server.reset_counts.remote(), timeout=60)
+    ans32, _ = one_thread()
+    batches = counts()
+    check_dense(cfg32, params, requests, ans32, device)
+    log(f"[process-runtime] (c) the driver put the f32 weights as host numpy"
+        f" ({_tree_nbytes(host)} bytes, {put_s:.2f} s); the actor in the "
+        f"daemon (pid {server_pid}, granted {granted}) fetched them over the "
+        f"object plane: {fetched} bytes in {fetch_s:.2f} s; f32: "
+        f"{n_requests} answers in {batches} batches match the unpadded dense"
+        f" run at rtol=atol=1e-3; kernel launches {n_layers} per batch, "
+        f"counted in the daemon's process")
+    rt.get(server.switch.remote("bfloat16"), timeout=600)
+    threads()                                             # warm-up
+    measured = {}
+    for what, submit in ((f"from {n_requests} threads", threads),
+                         ("from one thread", one_thread)):
+        rt.get(server.reset_counts.remote(), timeout=60)
+        runs = [submit() for _ in range(SERVE_RUNS)]
+        batches = counts()
+        for answers, _ in runs:
+            assert all(np.isfinite(a).all() for a in answers), \
+                "non-finite logits"
+            assert all(a.shape == (width["vocab_size"],) for a in answers)
+        measured[what] = (statistics.median(t for _, t in runs), batches)
+    log(f"[process-runtime] (c) bf16 after the switch: {n_requests} finite "
+        f"answers x {SERVE_RUNS} passes from {n_requests} threads and x "
+        f"{SERVE_RUNS} from one; kernel launches {n_layers} per batch in the "
+        f"daemon, {counted} in all")
+    for what, (seconds, batches) in measured.items():
+        log(f"[times] {card}: bf16 serving from a num_gpus={gpus} actor in a "
+            f"daemon process {what} {n_requests / seconds:.2f} requests/s, "
+            f"{n_tokens / seconds:.0f} tokens/s (median of {SERVE_RUNS} "
+            f"passes, {seconds:.4f} s, {batches} batches)")
+    log(f"[times] {card}: beside phase 5 direct {rates['direct']:.2f}, phase"
+        f" 15 in-process actor {rates['actor']:.2f}, phase 16 Serve plane "
+        f"{rates['plane_threads']:.2f} (16 threads) / "
+        f"{rates['plane_single']:.2f} (one thread) requests/s")
+    free_serving = torch.cuda.mem_get_info(device)[0]
+
+    # (d) the GPU daemon dies
+    gpu_addr = cluster.daemons[gpu_index]["address"]
+    timeout_s = cluster._heartbeat_timeout_ms / 1e3
+    t0 = time.perf_counter()
+    cluster.kill_daemon(gpu_index)
+    try:
+        rt.get(server.counts.remote(), timeout=60)
+    except rt.ActorDiedError as e:
+        died_s = time.perf_counter() - t0
+        reason = str(e).splitlines()[0][:120]
+    else:
+        raise AssertionError("a call on the killed daemon's actor returned")
+    assert died_s <= timeout_s, (died_s, timeout_s)
+    state = worker.global_worker().runtime.state
+    deadline = time.monotonic() + timeout_s + 5
+    dead = None
+    while time.monotonic() < deadline:
+        dead = [n for n in state.list_nodes() if n.address == gpu_addr]
+        if dead and not dead[0].alive:
+            break
+        time.sleep(0.1)
+    assert dead and not dead[0].alive, dead
+    del params, ans32
+    free_after = None
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline:
+        free_device_caches()
+        free_after = torch.cuda.mem_get_info(device)[0]
+        if free_before - free_after <= PROCESS_MEMORY_SLACK:
+            break
+        time.sleep(0.2)
+    assert free_before - free_after <= PROCESS_MEMORY_SLACK, (
+        free_before, free_after)
+    log(f"[process-runtime] (d) kill_daemon: a call on the actor raised "
+        f"ActorDiedError after {died_s:.2f} s (heartbeat timeout "
+        f"{timeout_s:.1f} s): {reason!r}; the state service lists the node "
+        f"dead ({dead[0].death_reason!r}); the card's free memory: "
+        f"{free_before} bytes before (a), {free_serving} while the daemon "
+        f"served, {free_after} after the kill")
+    t0 = time.perf_counter()
+    cluster.add_daemon(num_gpus=gpus)
+    new = cluster.daemons[-1]
+    procs.append(new["proc"])
+    assert new["cards"] == cards, (new["cards"], cards)
+    server = server_cls.remote(cfg32, [params_ref], device)
+    call = rt.ActorMethod(server, "__call__")
+    batch = requests[:BATCH_BUCKETS[-1]]
+    answers = rt.get([call.remote(r) for r in batch], timeout=600)
+    params = _numpy_tree_to_torch(host, device)
+    check_dense(cfg32, params, batch, answers, device)
+    rt.kill(server)
+    del params
+    log(f"[process-runtime] (d) a new add_daemon(num_gpus={gpus}) took the "
+        f"freed card {new['cards']}; a fresh actor there answered "
+        f"{len(batch)} f32 requests matching the dense run at 1e-3 "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return counted
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2137,8 +2530,8 @@ def main() -> int:
     # 16. the Serve plane: controller, replicas, router, handles and the
     # HTTP proxy (launches counted in each sub-phase)
     t0 = time.perf_counter()
-    serve_plane_phase(fa, device, card, N_REQUESTS / seconds,
-                      runtime["actor_rps"])
+    plane = serve_plane_phase(fa, device, card, N_REQUESTS / seconds,
+                              runtime["actor_rps"])
     log(f"[serve-plane] phase 16 in {time.perf_counter() - t0:.1f} s")
 
     # 17. TorchTrainer: the training path from GPU train workers (launches
@@ -2148,8 +2541,18 @@ def main() -> int:
     trainer_launches = trainer_phase(fa, device, card, step_ms, parity)
     log(f"[trainer] phase 17 in {time.perf_counter() - t0:.1f} s")
 
+    # 18. the multi-process runtime: the serving path from a GPU actor in a
+    # daemon process (its launches counted in that process)
+    t0 = time.perf_counter()
+    free_device_caches()
+    daemon_launches = process_runtime_phase(fa, device, card, {
+        "direct": N_REQUESTS / seconds, "actor": runtime["actor_rps"],
+        "plane_threads": plane["threads"], "plane_single": plane["single"]})
+    log(f"[process-runtime] phase 18 in {time.perf_counter() - t0:.1f} s")
+
     fwd_launches, dq_launches, dkv_launches = (
         a + b for a, b in zip(trained["launches"], trainer_launches))
+    fwd_launches += daemon_launches
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",

@@ -11,7 +11,10 @@ its accelerator resource: ``init(num_gpus=...)`` and
 ``get_runtime_context().get_gpu_devices()`` take the place of the JAX
 package's ``num_tpus`` and ``get_tpu_devices()``. A ``torch.Tensor`` is a
 device object, stored by reference and refused at ``get`` once written in
-place. The multi-process runtime (``init(address=...)``) is not ported yet.
+place. ``init(address=...)`` joins a multi-process cluster
+(``cluster_utils.ProcessCluster``: a state-service process and host-daemon
+processes that own their cards); a tensor crosses processes as its host
+bytes and lands on the receiver's default device.
 
 On top of it: ``models.transformer`` runs its attention through the CUDA
 flash-attention kernels in ``ops``, ``air.TorchPredictor`` holds the weights

@@ -6,9 +6,9 @@ system toolchain, cached under ``build/ray_tpu_torch/native/`` at the root
 of the checkout (git-ignored) and rebuilt when the source is newer. No
 pybind11 — the libraries expose a C ABI consumed via ctypes.
 
-The JAX package's protobuf-linked binaries (the C++ state service and the
-C++ worker demo) belong to the multi-process runtime, which is not ported
-yet.
+The JAX package's protobuf-linked binaries are not built here: the port's
+state service is Python (``_private/state_service.py``), and the C++
+worker demo waits for ``libprotobuf`` on the machines the port runs on.
 """
 
 from __future__ import annotations

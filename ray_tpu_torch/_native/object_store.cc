@@ -38,6 +38,7 @@
 #include <unordered_map>
 #include <vector>
 
+#include <poll.h>
 #include <sys/mman.h>
 #include <sys/socket.h>
 #include <sys/stat.h>
@@ -383,12 +384,13 @@ class StoreServer {
   bool ok() const { return listen_fd_ >= 0; }
 
   ~StoreServer() {
+    // The accept loop polls with a timeout and re-checks stopping_: a
+    // shutdown() of a listening socket does not wake a blocked accept() on
+    // every kernel (some answer ENOTCONN and leave it blocked), so the
+    // listening fd is closed only once the loop has returned.
     stopping_ = true;
-    if (listen_fd_ >= 0) {
-      shutdown(listen_fd_, SHUT_RDWR);
-      close(listen_fd_);
-    }
     if (accept_thread_.joinable()) accept_thread_.join();
+    if (listen_fd_ >= 0) close(listen_fd_);
     // Kick every parked connection thread out of its blocking read, then
     // wait for the (detached) threads to drain. The wait is UNBOUNDED on
     // purpose: returning early would free this server (and soon the
@@ -405,11 +407,10 @@ class StoreServer {
  private:
   void AcceptLoop() {
     while (!stopping_) {
+      struct pollfd pfd = {listen_fd_, POLLIN, 0};
+      if (poll(&pfd, 1, kAcceptPollMs) <= 0) continue;  // timeout, EINTR
       int fd = accept(listen_fd_, nullptr, nullptr);
-      if (fd < 0) {
-        if (stopping_) return;
-        continue;
-      }
+      if (fd < 0) continue;
       {
         std::lock_guard<std::mutex> g(conns_mu_);
         conn_fds_.insert(fd);
@@ -503,6 +504,7 @@ class StoreServer {
   Store* store_;
   int listen_fd_ = -1;
   std::atomic<bool> stopping_{false};
+  static constexpr int kAcceptPollMs = 100;
   std::thread accept_thread_;
   std::mutex conns_mu_;
   std::condition_variable conns_cv_;

@@ -21,6 +21,15 @@ Two encoders share the layout:
 
 This module is the single owner of the layout; ``distributed.py`` (wire)
 and ``object_store.py`` (arena receive slots) both decode through it.
+
+Tensors between processes (``TensorPickler``, ``dumps``): torch's own
+reducer keeps a CUDA tensor's device index, and such a pickle does not load
+in a process without CUDA. Values that leave the process therefore reduce
+every ``torch.Tensor`` to its dtype, shape and host bytes, the bytes as a
+pickle-5 buffer (out of band in a frame; bf16 as its raw bits), and the
+receiver rebuilds it on its own default device: ``cuda:0`` of its visible
+cards where it has one, the CPU otherwise, as a ``jax.Array`` lands on the
+receiver's default device.
 """
 
 from __future__ import annotations
@@ -28,9 +37,11 @@ from __future__ import annotations
 import io
 import pickle
 import struct as _struct
+import warnings
 from typing import Any, List, Tuple
 
 import cloudpickle
+import torch
 
 FRAME_MAGIC = b"RTF5"
 _PAD = bytes(64)  # alignment gaps are always < 64 bytes
@@ -51,6 +62,60 @@ def frame_layout(header_len: int, buf_lens: List[int], trace: bytes = b""):
         buf_offs.append(off)
         off = (off + ln + 63) & ~63
     return off, header_off, buf_offs, idx
+
+
+def _landing_device() -> torch.device:
+    return (torch.device("cuda", 0) if torch.cuda.is_available()
+            else torch.device("cpu"))
+
+
+def _rebuild_tensor(dtype: str, shape: tuple, data, requires_grad: bool,
+                    parameter: bool) -> torch.Tensor:
+    """Inverse of ``TensorPickler``'s reduction: the tensor on this
+    process's default device, never aliasing ``data`` (which may be a view
+    into a received frame or shared arena pages)."""
+    dt = getattr(torch, dtype)
+    if len(memoryview(data)):
+        with warnings.catch_warnings():
+            # a read-only frame view: the bytes are copied off it below
+            warnings.simplefilter("ignore", UserWarning)
+            flat = torch.frombuffer(data, dtype=torch.uint8)
+    else:
+        flat = torch.empty(0, dtype=torch.uint8)
+    t = flat.view(dt).reshape(shape)
+    device = _landing_device()
+    t = t.to(device) if device.type == "cuda" else t.clone()
+    if parameter:
+        return torch.nn.Parameter(t, requires_grad=requires_grad)
+    return t.requires_grad_(requires_grad)
+
+
+class TensorPickler(cloudpickle.CloudPickler):
+    """cloudpickle, with every dense ``torch.Tensor`` (and ``Parameter``)
+    reduced to dtype, shape and host bytes. The device-to-host copy runs on
+    the caller's current stream; callers that got the tensor from the
+    object store have already made that stream wait on the put's event."""
+
+    def reducer_override(self, obj):
+        if (type(obj) in (torch.Tensor, torch.nn.Parameter)
+                and obj.layout == torch.strided and not obj.is_quantized):
+            host = obj.detach().resolve_conj().resolve_neg()
+            host = host.contiguous().cpu()
+            raw = host.reshape(-1).view(torch.uint8).numpy()
+            return _rebuild_tensor, (
+                str(obj.dtype).removeprefix("torch."), tuple(obj.shape),
+                pickle.PickleBuffer(raw),
+                bool(obj.requires_grad and obj.is_leaf),
+                isinstance(obj, torch.nn.Parameter))
+        return super().reducer_override(obj)
+
+
+def dumps(value: Any) -> bytes:
+    """``cloudpickle.dumps`` for values that leave the process: tensors in
+    band, as ``TensorPickler`` reduces them."""
+    out = io.BytesIO()
+    TensorPickler(out, protocol=5).dump(value)
+    return out.getvalue()
 
 
 def _pickle_oob(value: Any, pickler=None):
@@ -155,8 +220,9 @@ class FramedPayload:
 
     __slots__ = ("_segments", "_total", "trace")
 
-    def __init__(self, value: Any, trace: bytes = b""):
-        header, raws = _pickle_oob(value)
+    def __init__(self, value: Any, trace: bytes = b"", pickler=None):
+        """``pickler``: as for ``_pickle_oob``."""
+        header, raws = _pickle_oob(value, pickler)
         total, hoff, boffs, idx = frame_layout(len(header),
                                                [r.nbytes for r in raws],
                                                trace)

@@ -28,8 +28,8 @@ What maps where:
                   with restart-up-to-``max_restarts``
                   (``gcs_actor_manager.h:66,433``).
 
-Multi-host: the JAX package runs one ``Runtime`` peer per host behind a
-state service; that multi-process runtime is not ported yet. In-process,
+Multi-host: one ``Runtime`` peer per host daemon behind a state service
+(``distributed.DistributedRuntime``, ``init(address=...)``). In-process,
 ``cluster_utils.Cluster`` instantiates many ``Node``s under one ``Runtime``
 for multi-node tests, like the reference's
 ``python/ray/cluster_utils.py:99``.

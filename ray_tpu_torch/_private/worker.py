@@ -3,9 +3,9 @@
 Parity with ``python/ray/_private/worker.py`` (``ray.init`` :1003, ``ray.get``
 :2162, ``ray.put`` :2276, ``ray.wait`` :2331, ``ray.shutdown`` :1529).
 
-Only the in-process runtime is ported: ``init(address=...)`` (the
-multi-process runtime) and ``init(include_dashboard=True)`` raise
-``NotImplementedError``.
+``init(address=...)`` joins a multi-process cluster (``distributed.py``);
+``init(include_dashboard=True)`` raises ``NotImplementedError``: the
+dashboard is not ported yet.
 """
 
 from __future__ import annotations
@@ -75,17 +75,17 @@ def init(num_cpus: Optional[float] = None,
     ``num_gpus`` GPUs (by default every CUDA device PyTorch sees; no ``GPU``
     key where there is none).
 
-    ``address="host:port"`` (join a cluster's state service, the
-    reference's ``ray.init(address=...)``, ``worker.py:1003``) and
-    ``include_dashboard=True`` need the multi-process runtime and the
-    dashboard, which are not ported yet (ROADMAP Queue 1); they raise
-    ``NotImplementedError``.
+    ``address="host:port"`` connects this process as a driver to an
+    existing cluster's state service (the reference's
+    ``ray.init(address=...)`` path, ``worker.py:1003``): tasks and actors
+    are then scheduled across the cluster's host daemons. The driver's own
+    node contributes no resources unless ``num_cpus``/``num_gpus`` are
+    passed explicitly.
+
+    ``include_dashboard=True`` needs ``dashboard/``'s head, which is not
+    ported yet (ROADMAP Queue 1); it raises ``NotImplementedError``.
     """
     global _global
-    if address is not None:
-        raise NotImplementedError(
-            "init(address=...) needs the multi-process runtime, which is "
-            "not ported yet (ROADMAP Queue 1: the multi-process runtime)")
     if include_dashboard:
         raise NotImplementedError(
             "init(include_dashboard=True) needs dashboard/, which is not "
@@ -120,6 +120,20 @@ def init(num_cpus: Optional[float] = None,
             global _displaced_auth_token
             _displaced_auth_token = os.environ.get("RAY_TPU_AUTH_TOKEN")  # raylint: guarded-by(_global_lock)
             os.environ["RAY_TPU_AUTH_TOKEN"] = auth_token
+        if address is not None:
+            from ray_tpu_torch._private.distributed import DistributedRuntime
+            amounts: Dict[str, float] = {}
+            if num_cpus:
+                amounts[CPU] = num_cpus
+            if num_gpus:
+                amounts[GPU] = num_gpus
+            if resources:
+                amounts.update(resources)
+            runtime = DistributedRuntime(
+                state_addr=address, resources=ResourceSet(amounts),
+                is_driver=True, namespace=namespace or "default")
+            _global = Worker(runtime, namespace or "default")  # raylint: allow(data-race) installed under _global_lock; unlocked peeks like is_initialized are GIL-atomic snapshots
+            return _global
         runtime = Runtime()
         if _create_default_node:
             amounts: Dict[str, float] = {

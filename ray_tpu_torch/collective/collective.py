@@ -14,7 +14,7 @@ per-process ``GroupManager`` + named-``Info``-actor rendezvous
 Only the in-process half is ported: every rank of a group is a thread of
 this process. The JAX package's process-spanning group
 (``xla_process_group.py``, on the multi-process runtime) waits for ROADMAP
-Queue 1 item 3.
+Queue 1's process half of ``collective/``.
 
 The comms ledger records each op's duration on the host clock. For CUDA
 tensors that is the time to enqueue the op unless the caller synchronizes
@@ -81,7 +81,8 @@ class GroupManager:
             # runs on the multi-process runtime.
             raise NotImplementedError(
                 "process-spanning collective groups are not ported yet "
-                "(ROADMAP Queue 1 item 3: the multi-process runtime)")
+                "(ROADMAP Queue 1: the process half of collective/, "
+                "xla_process_group.py and tensor_plane.py)")
         with _registry_lock:
             shared = _shared_groups.get(group_name)
             if shared is None:

@@ -748,9 +748,8 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: ray_tpu_torch.init(address="localhost:1"),
     lambda: ray_tpu_torch.init(include_dashboard=True),
-], ids=["address", "dashboard"])
+], ids=["dashboard"])
 def test_paths_not_ported_yet_raise(call):
     ray_tpu_torch.shutdown()
     with pytest.raises((NotImplementedError, ray_tpu_torch.TaskError),
