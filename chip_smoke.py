@@ -151,7 +151,35 @@ Phases, each of which asserts:
    value before (a), and a new ``add_daemon(num_gpus=1)`` takes the card
    back and a fresh actor there answers one f32 batch correctly; (e)
    ``shutdown()`` and ``cluster.shutdown()``: no daemon or state-service
-   process is left.
+   process is left;
+19. tensor plane (``collective/tensor_plane.py`` and ``NCCLProcessGroup``:
+   collective groups whose ranks are daemon processes): (a) a
+   ``ProcessCluster`` of one CPU daemon plus ``add_daemon(num_gpus=1)``,
+   ``init(address=)``, and ``TorchTrainer(num_workers=1, use_gpu=True)``
+   on the default ``nccl`` backend: its worker, in the GPU daemon, joins
+   the plane (world 1, NCCL, coordinator read from the state-service KV)
+   and gets the ``data=1`` mesh over it; phase 9's model from phase 9's
+   seed, 1 + 5 steps, each reported; step 0's loss equals phase 9's first
+   at ``TRAIN_RTOL``, losses finite and falling, 2 x n_layers / n_layers /
+   n_layers launches a step counted in the daemon's process (into the
+   kernels line); the last step reports the parameters (f32, ~1.07 GB),
+   which the engine commits under the git-ignored build/plane; the step's
+   ms beside phases 9 and 17 (a), the report's ms, the commit's seconds;
+   (b) ``serve.run`` of a ``num_gpus=1`` deployment in the GPU daemon from
+   the dict form of (a)'s ``CheckpointRef``: f32 answers to phase 5's
+   requests match a dense forward here on the same checkpoint at 1e-3;
+   then a bf16 deployment from it, 1 warm-up and 3 measured passes from 16
+   threads and 3 from one, requests/s beside phases 16 and 18 (c), the
+   replica's forward launches counted in the daemon (into the kernels
+   line); (c) a gloo plane over two CPU daemons: allreduce, reduce,
+   broadcast, allgather, reducescatter and barrier on seeded tensors
+   against numpy, an 8 MB bulk-lane send each way bit-equal, nothing of
+   the group left under the p2p namespace of the KV, each op's ms; (d) an
+   NCCL plane over two GPU daemons on distinct cards, which needs two or
+   more (with one, the phase says it did not run); (e) ``serve.shutdown``,
+   ``shutdown`` and ``cluster.shutdown``: no process left, the card's free
+   memory back within 64 MiB of its value before (a), the checkpoint
+   directory deleted.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -250,6 +278,15 @@ TRAINER_TIMEOUT_S = 600
 # value before the phase.
 HOP_RUNS = 5
 PROCESS_MEMORY_SLACK = 64 * 2**20
+# Phase 19: the tensor plane. The trainer's checkpoint goes under the
+# git-ignored build/ and is deleted at the end; each bulk-lane send of (c)
+# is this many f32 values (8 MB). The state service's own default heartbeat
+# timeout: the GPU daemon pickles the 1.07 GB reported checkpoint for the
+# driver on its interpreter lock, which starves its heartbeat thread for
+# about as long as ProcessCluster's 3 s test timeout.
+PLANE_DIR = "build/plane"
+PLANE_BULK_ELEMS = 2 * 1024 * 1024
+PLANE_HEARTBEAT_TIMEOUT_MS = 10_000
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -477,16 +514,23 @@ def serve_all(deployment, requests, timeout_s: float = 300.0):
     return answers, seconds
 
 
+def seeded_requests(width=SERVE_WIDTH, n_requests=N_REQUESTS):
+    """The seeded requests of phases 5 and 15: (the rng after them,
+    lengths, requests)."""
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(1, width["max_seq_len"] + 1, size=n_requests)
+    requests = [rng.integers(0, width["vocab_size"], size=n).tolist()
+                for n in lengths]
+    return rng, lengths, requests
+
+
 def serve_inputs(device, width=SERVE_WIDTH, n_requests=N_REQUESTS):
     """The seeded requests and f32 weights of phases 5 and 15: (the rng
     after the requests, lengths, requests, f32 config, params)."""
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.models.transformer import TransformerConfig
 
-    rng = np.random.default_rng(SEED)
-    lengths = rng.integers(1, width["max_seq_len"] + 1, size=n_requests)
-    requests = [rng.integers(0, width["vocab_size"], size=n).tolist()
-                for n in lengths]
+    rng, lengths, requests = seeded_requests(width, n_requests)
     cfg32 = TransformerConfig(**width, dtype=torch.float32, use_flash=True)
     gen = torch.Generator(device=device).manual_seed(SEED)
     return (rng, lengths, requests, cfg32,
@@ -1202,7 +1246,8 @@ def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
                # bench.py's count: 6 FLOPs a parameter a token (2 forward,
                # 4 backward), remat's recompute not counted.
                model_tflops=6.0 * n_params * n_tokens / step_s / 1e12,
-               peak_bytes=torch.cuda.max_memory_allocated(), n_layers=n)
+               peak_bytes=torch.cuda.max_memory_allocated(), n_layers=n,
+               losses=losses)
     where = "" if mesh is None else f" (sharded, mesh {mesh.shape})"
     log(f"[train] bf16{where}, {n_params / 1e6:.1f} M parameters, {n} layers,"
         f" remat, batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
@@ -1660,7 +1705,7 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
     ``TorchTrainer`` in one ``use_gpu`` worker on the ``nccl`` group, 1 + 5
     steps, the full state checkpointed at every third report (two kept);
     then the committed state restored and held against the host copy taken
-    at that step. Returns the launches of the run."""
+    at that step. Returns the launches of the run and its median step ms."""
     from ray_tpu_torch.air import (Checkpoint, CheckpointConfig, RunConfig,
                                    ScalingConfig)
     from ray_tpu_torch.checkpoint import list_manifest_names, read_manifest
@@ -1764,7 +1809,7 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
     log(f"[trainer] (a) goodput ledger (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(cats.items()))
         + f"; compiles {ledger['jobs']['default']['compile_count']}")
-    return launches
+    return launches, step_ms
 
 
 def trainer_restart_phase(rt, fa, device, root, width=PARITY_WIDTH,
@@ -2002,7 +2047,8 @@ def trainer_phase(fa, device, card, phase9_ms, parity_want):
     detected: (a) full width, (b) failure and restart, (c) two workers
     sharing the card, (d) distinct cards (needs two). The checkpoint
     directory is made under the git-ignored build/ and deleted at the end.
-    Returns the launches of (a), (b) and (c), summed."""
+    Returns the launches of (a), (b) and (c), summed, and (a)'s median
+    step ms."""
     import ray_tpu_torch as rt
     root = REPO / TRAINER_DIR
     shutil.rmtree(root, ignore_errors=True)
@@ -2012,7 +2058,9 @@ def trainer_phase(fa, device, card, phase9_ms, parity_want):
     try:
         res = rt.cluster_resources()
         assert res.get("GPU", 0) == torch.cuda.device_count(), res
-        totals = [trainer_full_phase(rt, fa, device, card, phase9_ms, root)]
+        launches, full_ms = trainer_full_phase(rt, fa, device, card,
+                                               phase9_ms, root)
+        totals = [launches]
         torch.cuda.empty_cache()
         totals.append(trainer_restart_phase(rt, fa, device, root))
         totals.append(trainer_halves_phase(rt, fa, device, card,
@@ -2021,7 +2069,7 @@ def trainer_phase(fa, device, card, phase9_ms, parity_want):
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
-    return tuple(map(sum, zip(*totals)))
+    return tuple(map(sum, zip(*totals))), full_ms
 
 
 # -- phase 18: the multi-process runtime --------------------------------------
@@ -2126,7 +2174,8 @@ def process_runtime_phase(fa, device, card, rates, width=SERVE_WIDTH,
                           n_requests=N_REQUESTS, side=OBJECT_SIDE, gpus=1):
     """Phase 18: the multi-process runtime on the card. ``rates``: phases
     5, 15 and 16's bf16 requests/s, printed beside this phase's. Returns
-    the flash forward kernel's launches counted in the daemon's process."""
+    the flash forward kernel's launches counted in the daemon's process
+    and (c)'s bf16 requests/s from 16 threads and from one."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.cluster_utils import ProcessCluster
 
@@ -2144,7 +2193,7 @@ def process_runtime_phase(fa, device, card, rates, width=SERVE_WIDTH,
         procs += [d["proc"] for d in cluster.daemons]
         rt.init(address=cluster.address)
         try:
-            launches = process_runtime_paths(
+            launches, served = process_runtime_paths(
                 rt, cluster, gpu_index, fa, device, card, rates, width,
                 n_requests, side, gpus, cpu_s, gpu_s, free_before, procs)
         finally:
@@ -2157,7 +2206,7 @@ def process_runtime_phase(fa, device, card, rates, width=SERVE_WIDTH,
     assert not left, left
     log(f"[process-runtime] (e) shutdown() and cluster.shutdown(): none of "
         f"the {len(set(procs))} state-service and daemon processes is left")
-    return launches
+    return launches, served
 
 
 def process_runtime_paths(rt, cluster, gpu_index, fa, device, card, rates,
@@ -2373,9 +2422,473 @@ def process_runtime_paths(rt, cluster, gpu_index, fa, device, card, rates,
         f"freed card {new['cards']}; a fresh actor there answered "
         f"{len(batch)} f32 requests matching the dense run at 1e-3 "
         f"({time.perf_counter() - t0:.2f} s)")
-    return counted
+    return counted, {what: n_requests / seconds
+                     for what, (seconds, _) in measured.items()}
 
 
+# -- phase 19: the tensor plane; training and serving in daemons -------------
+
+
+class PlaneRank:
+    """User code for phase 19 (c) and (d): one rank of a collective group
+    in a daemon process. Each op returns its result as host numpy (bf16 as
+    f32) with the op's ms, timed here on the host clock."""
+
+    def plane(self):
+        import os
+
+        from ray_tpu_torch.collective.tensor_plane import current_plane
+        return current_plane(), os.getpid()
+
+    def op(self, name, x, **kw):
+        from ray_tpu_torch import collective as col
+        from ray_tpu_torch.collective.tensor_plane import current_plane
+        device = torch.device(current_plane()["device"])
+        args = () if x is None else (torch.as_tensor(x).to(device),)
+        t0 = time.perf_counter()
+        out = getattr(col, name)(*args, group_name=kw.pop("group"), **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if out is None:
+            return None, str(device), ms
+        assert out.device == device, (out.device, device)
+        return out.float().cpu().numpy(), str(device), ms
+
+    def send(self, seed, n, peer, group):
+        from ray_tpu_torch import collective as col
+        x = torch.randn(n, generator=torch.Generator().manual_seed(seed))
+        t0 = time.perf_counter()
+        col.send(x.reshape(-1, 1024), peer, group)
+        return (time.perf_counter() - t0) * 1e3
+
+    def recv(self, seed, n, peer, group):
+        """Whether the tensor received equals the seeded build here, bit
+        for bit, and the recv's ms."""
+        from ray_tpu_torch import collective as col
+        t0 = time.perf_counter()
+        got = col.recv(peer, group)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = torch.randn(n, generator=torch.Generator().manual_seed(seed))
+        return torch.equal(got.cpu(), want.reshape(-1, 1024)), ms
+
+    def destroy(self, group):
+        from ray_tpu_torch import collective as col
+        col.destroy_collective_group(group)
+
+
+class CheckpointLM(ServedLM):
+    """User code for phase 19 (b): phase 16's deployment whose weights come
+    from the checkpoint engine: the replica receives (a)'s committed
+    parameters as ``checkpoint=`` (host numpy, loaded on the replica) and
+    casts them to its config's dtype on its card. Its forward launches are
+    counted in its own process."""
+
+    def __init__(self, cfg, answer, device, checkpoint):
+        import ray_tpu_torch
+        from ray_tpu_torch.models import transformer
+        granted = ray_tpu_torch.get_runtime_context().get_gpu_devices()
+        dev = granted[0] if granted else device
+        params = _numpy_tree_to_torch(checkpoint["params"], dev)
+        if cfg.dtype != torch.float32:
+            params = transformer.cast_params(params, cfg.dtype)
+        super().__init__(cfg, params, answer, device)
+        self.fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    def counts(self):
+        """(forward launches in this process, batches answered)."""
+        return self.fa.launches, len(self.sizes)
+
+
+def plane_trainer_loop(config):
+    """Phase 19 (a): the training loop a user hands ``TorchTrainer``, run by
+    a worker inside a GPU daemon. It checks that it joined the tensor plane
+    (NCCL, world 1) and got its mesh, builds phase 9's model from phase 9's
+    seed on its granted card, takes ``config["steps"]`` steps on
+    ``session.shard_batch``, reports each, and at the last step reports the
+    parameters as a checkpoint (the engine commits them). A final report
+    carries what only this process can measure: each report's ms, the
+    kernels' launches counted here, the commit's time."""
+    import os
+
+    from torch.distributed.tensor import DTensor
+
+    import ray_tpu_torch
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.collective.tensor_plane import current_plane
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.observability import perf
+    from ray_tpu_torch.train import make_lm_train_step, session
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    granted = ray_tpu_torch.get_runtime_context().get_gpu_devices()
+    assert granted and granted[0].type == "cuda", granted
+    device = granted[0]
+    plane, mesh = current_plane(), session.get_mesh()
+    assert plane is not None and plane["backend"] == "nccl" \
+        and plane["world"] == 1 and plane["device"] == str(device), plane
+    assert mesh is not None and mesh.device_type == "cuda" \
+        and mesh.size == 1, mesh
+    cfg = TransformerConfig(**config["width"], dtype=torch.bfloat16,
+                            use_flash=True)
+    init_fn, step_fn, _ = make_lm_train_step(cfg, mesh, device=device)
+    state = init_fn(torch.Generator(device=device).manual_seed(
+        config["seed"]))
+    tokens = session.shard_batch(config["tokens"])
+    perf.enable()
+    perf.reset()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    report_ms = []
+    for step in range(config["steps"]):
+        before = launch_counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        loss = metrics["loss"].item()
+        grad_norm = metrics["grad_norm"].item()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launched = tuple(a - b for a, b in zip(launch_counts(fa), before))
+        ckpt = None
+        if step == config["steps"] - 1:
+            ckpt = Checkpoint.from_dict({"params": transformer._tree_map(
+                lambda p: p.to_local() if isinstance(p, DTensor) else p,
+                state[0])})
+        t1 = time.perf_counter()
+        session.report({"step": step, "loss": loss, "grad_norm": grad_norm,
+                        "step_ms": step_ms, "launches": launched},
+                       checkpoint=ckpt)
+        report_ms.append((time.perf_counter() - t1) * 1e3)
+    t0 = time.perf_counter()
+    committed = session._get_session()._engine().flush(timeout=600)
+    flush_s = time.perf_counter() - t0
+    snap = perf.snapshot()
+    perf.disable()
+    session.report({"summary": True, "report_ms": report_ms,
+                    "launches": launch_counts(fa), "committed": committed,
+                    "flush_s": flush_s,
+                    "enqueue_ms": _perf_mean_ms(snap, "train.ckpt_enqueue"),
+                    "save_ms": _perf_mean_ms(snap, "ckpt.save"),
+                    "pid": os.getpid(), "plane": plane,
+                    "mesh": dict(mesh.shape),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def tensor_plane_phase(fa, device, card, phase9, phase17_ms, rates,
+                       width=SERVE_WIDTH, batch=TRAIN_BATCH,
+                       steps=TRAIN_STEPS, n_requests=N_REQUESTS):
+    """Phase 19: the tensor plane, ``TorchTrainer`` workers training in a
+    GPU daemon, and a Serve deployment in that daemon from their
+    checkpoint. ``phase9``: phase 9's results (its first loss and step ms);
+    ``phase17_ms``: phase 17 (a)'s step ms; ``rates``: phases 16 and 18's
+    bf16 requests/s. Returns the launches counted in the daemon: (forward,
+    dq, dkv) of (a) plus (b)'s forward."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import ProcessCluster
+
+    root = REPO / PLANE_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_device_caches()
+    free_before = torch.cuda.mem_get_info(device)[0]
+    cluster = ProcessCluster(num_daemons=1, num_cpus=4,
+                             heartbeat_timeout_ms=PLANE_HEARTBEAT_TIMEOUT_MS)
+    procs = [cluster.state_proc]
+    try:
+        gpu_index = len(cluster.daemons)
+        cluster.add_daemon(num_gpus=1)
+        procs += [d["proc"] for d in cluster.daemons]
+        rt.init(address=cluster.address)
+        try:
+            launches = tensor_plane_paths(
+                rt, serve, cluster, gpu_index, fa, device, card, phase9,
+                phase17_ms, rates, root, width, batch, steps, n_requests,
+                procs)
+        finally:
+            serve.shutdown()
+            rt.shutdown()
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    # (e) nothing of the cluster outlives it, and the card's memory is back
+    procs += [d["proc"] for d in cluster.daemons]
+    left = [p.pid for p in procs if p.poll() is None]
+    assert not left, left
+    free_after = None
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline:
+        free_device_caches()
+        free_after = torch.cuda.mem_get_info(device)[0]
+        if free_before - free_after <= PROCESS_MEMORY_SLACK:
+            break
+        time.sleep(0.2)
+    assert free_before - free_after <= PROCESS_MEMORY_SLACK, (
+        free_before, free_after)
+    log(f"[plane] (e) serve.shutdown(), shutdown() and cluster.shutdown(): "
+        f"none of the {len(set(procs))} state-service and daemon processes"
+        f" is left; the card's free memory {free_before} bytes before (a), "
+        f"{free_after} after; the checkpoint directory is deleted")
+    return launches
+
+
+def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
+                       phase9, phase17_ms, rates, root, width, batch, steps,
+                       n_requests, procs):
+    """Phase 19 (a)-(d) on a live cluster, with this process its driver."""
+    from ray_tpu_torch.air import CheckpointConfig, RunConfig, ScalingConfig
+    from ray_tpu_torch.checkpoint import CheckpointRef, resolve_latest
+    from ray_tpu_torch.collective import create_collective_group
+    from ray_tpu_torch.collective.collective_group.nccl_process_group import (
+        P2P_NS)
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.train import TorchTrainer
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy)
+
+    n = width["n_layers"]
+    per_step = (2 * n, n, n)
+    # (a) TorchTrainer: one use_gpu worker in the GPU daemon
+    config = dict(width=width, seed=SEED, steps=1 + steps,
+                  tokens=np.random.default_rng(SEED + 4).integers(
+                      0, width["vocab_size"], size=batch))
+    trainer = TorchTrainer(
+        plane_trainer_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="plane", storage_path=str(root),
+                             checkpoint_config=CheckpointConfig(
+                                 num_to_keep=1)),
+        results_timeout_s=TRAINER_TIMEOUT_S)
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        state = rt._private.worker.global_worker().runtime.state
+        log("[plane] (a) failed; nodes: " + "; ".join(
+            f"{n.address} alive={n.alive} {n.death_reason!r}"
+            for n in state.list_nodes()))
+    assert result.error is None, result.error
+    hist = [m for m in result.metrics_history if "summary" not in m]
+    summary = next(m for m in result.metrics_history if "summary" in m)
+    assert [m["step"] for m in hist] == list(range(1 + steps)), hist
+    losses = [m["loss"] for m in hist]
+    norms = [m["grad_norm"] for m in hist]
+    assert all(np.isfinite(losses + norms)), (losses, norms)
+    assert losses[-1] < losses[0], losses
+    np.testing.assert_allclose(losses[0], phase9["losses"][0],
+                               rtol=TRAIN_RTOL)
+    assert all(m["launches"] == per_step for m in hist), \
+        [m["launches"] for m in hist]
+    launches = tuple(summary["launches"])
+    assert launches == tuple((1 + steps) * c for c in per_step), launches
+    cards = cluster.daemons[gpu_index]["cards"]
+    assert summary["pid"] == cluster.daemons[gpu_index]["proc"].pid and \
+        summary["visible"] == ",".join(cards), summary
+    assert summary["committed"], "the engine did not commit the parameters"
+    step_ms = statistics.median(m["step_ms"] for m in hist[1:])
+    ckpt_root = root / "plane" / "checkpoints"
+    ref = CheckpointRef(str(ckpt_root), resolve_latest(str(ckpt_root)))
+    log(f"[plane] (a) TorchTrainer, 1 use_gpu worker in the GPU daemon (pid "
+        f"{summary['pid']}, CUDA_VISIBLE_DEVICES={summary['visible']!r}) on "
+        f"the tensor plane {summary['plane']}, mesh {summary['mesh']}: bf16,"
+        f" {n} layers, remat, batch {batch[0]} x {batch[1]}: losses "
+        f"{losses} (step 0 against phase 9's {phase9['losses'][0]} at "
+        f"rtol {TRAIN_RTOL}), grad norms {norms}; launches a step "
+        f"{per_step} (forward, dq, dkv) counted in the daemon's process, "
+        f"{launches} in {1 + steps} steps; the parameters committed as "
+        f"{ref.manifest_name}; fit() {fit_s:.1f} s")
+    log(f"[times] {card}: TorchTrainer bf16 step in a GPU daemon "
+        f"{step_ms:.3f} ms (median of {steps}; steps in ms: "
+        + ", ".join(f"{m['step_ms']:.1f}" for m in hist)
+        + f"), phase 9's direct step {phase9['step_ms']:.3f} ms, phase 17 "
+        f"(a)'s in-process trainer step {phase17_ms:.3f} ms in this run; "
+        f"session.report "
+        f"{statistics.median(summary['report_ms'][:-1]):.3f} ms without a "
+        f"checkpoint (median of {steps}), {summary['report_ms'][-1]:.1f} ms"
+        f" with the parameters (the host snapshot and the engine's enqueue "
+        f"{summary['enqueue_ms']:.1f} ms); the commit (hash, write, "
+        f"manifest) {summary['save_ms'] / 1e3:.3f} s, waited "
+        f"{summary['flush_s']:.3f} s after the last report")
+
+    # (b) serve.run from the CheckpointRef: a num_gpus=1 replica in the
+    # GPU daemon
+    _, lengths, requests = seeded_requests(width, n_requests)
+    cfg32 = TransformerConfig(**width, dtype=torch.float32, use_flash=True)
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    n_tokens = int(lengths.sum())
+    lm = serve.deployment(
+        CheckpointLM, name="lm19", max_batch_size=8,
+        batch_wait_timeout_s=0.01, pad_batch_to=BATCH_BUCKETS,
+        target_latency_ms=SERVE_BUDGET_MS, ray_actor_options={"num_gpus": 1},
+        checkpoint=dataclasses.asdict(ref))
+    t0 = time.perf_counter()
+    h = serve.run(lm.bind(cfg32, "numpy", device), route_prefix=None)
+    run_s = time.perf_counter() - t0
+    assert h.devices.remote().result(timeout=60) == [
+        torch.device("cuda", 0)]
+    counted = 0
+
+    def served(run):
+        """``run()`` under the replica's own counts: (its result, batches);
+        the forward launches it made in the daemon go into ``counted``."""
+        nonlocal counted
+        l0, b0 = h.counts.remote().result(timeout=60)
+        out = run()
+        l1, b1 = h.counts.remote().result(timeout=60)
+        assert l1 - l0 == n * (b1 - b0), (l1 - l0, b1 - b0)
+        counted += l1 - l0
+        return out, b1 - b0
+
+    (answers, _), ran = served(lambda: serve_all(
+        lambda r: h.remote(r).result(timeout=300), requests))
+    params = _numpy_tree_to_torch(ref.load()["params"], device)
+    check_dense(cfg32, params, requests, answers, device)
+    del params
+    log(f"[plane] (b) serve.run from the dict form of (a)'s CheckpointRef "
+        f"returned in {run_s:.2f} s: a num_gpus=1 replica in the GPU daemon "
+        f"loaded the committed parameters; f32: {n_requests} answers in "
+        f"{ran} batches match a dense forward here on the same checkpoint "
+        f"at rtol=atol=1e-3; kernel launches {n} per batch, counted in the "
+        f"daemon")
+    h.shutdown()
+    serve.delete("lm19")
+    h = serve.run(lm.bind(cfg16, "numpy", device), route_prefix=None)
+    serve_all(lambda r: h.remote(r).result(timeout=300), requests)  # warm-up
+
+    def threads():
+        return serve_all(lambda r: h.remote(r).result(timeout=300), requests)
+
+    def one_thread():
+        t0 = time.perf_counter()
+        responses = [h.remote(r) for r in requests]
+        answers = [r.result(timeout=300) for r in responses]
+        return answers, time.perf_counter() - t0
+
+    measured = {}
+    for what, submit in ((f"from {n_requests} threads", threads),
+                         ("from one thread", one_thread)):
+        runs, batches = served(lambda: [submit()
+                                        for _ in range(SERVE_RUNS)])
+        for answers, _ in runs:
+            assert all(np.isfinite(a).all() for a in answers), \
+                "non-finite logits"
+            assert all(a.shape == (width["vocab_size"],) for a in answers)
+        measured[what] = (statistics.median(t for _, t in runs), batches)
+    h.shutdown()
+    serve.delete("lm19")      # its replica's card is (d)'s
+    log(f"[plane] (b) bf16 from the same checkpoint (the f32 deployment "
+        f"deleted, a bf16 one run): {n_requests} finite answers x "
+        f"{SERVE_RUNS} passes from {n_requests} threads and x {SERVE_RUNS} "
+        f"from one; forward launches in the daemon {counted} in all")
+    for what, (secs, batches) in measured.items():
+        log(f"[times] {card}: bf16 serving from a Serve replica in a daemon, "
+            f"deployed from a CheckpointRef, {what} "
+            f"{n_requests / secs:.2f} requests/s, {n_tokens / secs:.0f} "
+            f"tokens/s (median of {SERVE_RUNS} passes, {secs:.4f} s, "
+            f"{batches} batches)")
+    log(f"[times] {card}: beside phase 16's in-process Serve plane "
+        f"{rates['plane_threads']:.2f} / {rates['plane_single']:.2f} and "
+        f"phase 18 (c)'s actor in a daemon {rates['daemon_threads']:.2f} / "
+        f"{rates['daemon_single']:.2f} requests/s (16 threads / one)")
+    launches = (launches[0] + counted,) + launches[1:]
+
+    # (c) a gloo plane over two CPU daemons
+    cluster.add_daemon()
+    procs.append(cluster.daemons[-1]["proc"])
+    state = rt._private.worker.global_worker().runtime.state
+    cpu_addrs = [d["address"] for d in cluster.daemons if not d["cards"]]
+    nodes = {i.address: i.node_id.hex() for i in state.list_nodes()
+             if i.alive}
+    rank_cls = rt.remote(num_cpus=1)(PlaneRank)
+    ranks = [rank_cls.options(
+        scheduling_strategy=NodeAffinitySchedulingStrategy(
+            node_id=nodes[a], soft=False)).remote() for a in cpu_addrs[:2]]
+    group = "plane-cpu"
+    t0 = time.perf_counter()
+    create_collective_group(ranks, 2, [0, 1], backend="nccl",
+                            group_name=group)
+    form_s = time.perf_counter() - t0
+    planes = rt.get([r.plane.remote() for r in ranks], timeout=120)
+    assert [p["backend"] for p, _ in planes] == ["gloo", "gloo"] and \
+        len({pid for _, pid in planes}) == 2, planes
+    rng = np.random.default_rng(SEED + 19)
+    xs = [rng.standard_normal((4, 1024)).astype(np.float32) for _ in range(2)]
+    expect = {
+        "allreduce": ({}, [xs[0] + xs[1]] * 2),
+        "reduce": ({"dst_rank": 1}, [xs[0], xs[0] + xs[1]]),
+        "broadcast": ({"src_rank": 1}, [xs[1], xs[1]]),
+        "allgather": ({}, [np.stack(xs)] * 2),
+        "reducescatter": ({}, [(xs[0] + xs[1])[:2], (xs[0] + xs[1])[2:]]),
+        "barrier": ({}, [None, None]),
+    }
+    op_ms = {}
+    for name, (kw, want) in expect.items():
+        args = [None, None] if name == "barrier" else xs
+        outs = rt.get([r.op.remote(name, x, group=group, **kw)
+                       for r, x in zip(ranks, args)], timeout=120)
+        for (got, where, _), w in zip(outs, want):
+            assert where == "cpu", where
+            if w is None:
+                assert got is None
+            else:
+                np.testing.assert_allclose(got, w, rtol=1e-6, atol=1e-6)
+        op_ms[name] = max(ms for _, _, ms in outs)
+    hops = []
+    for src, dst in ((0, 1), (1, 0)):
+        seed = SEED + 20 + src
+        got = ranks[dst].recv.remote(seed, PLANE_BULK_ELEMS, src, group)
+        sent_ms = rt.get(ranks[src].send.remote(seed, PLANE_BULK_ELEMS, dst,
+                                                group), timeout=120)
+        equal, recv_ms = rt.get(got, timeout=120)
+        assert equal, f"the bulk lane changed the tensor {src} -> {dst}"
+        hops.append((sent_ms, recv_ms))
+    rt.get([r.destroy.remote(group) for r in ranks], timeout=60)
+    left = [k for k in state.kv_keys(namespace=P2P_NS)
+            if k.startswith(group.encode())]
+    assert left == [], left
+    for r in ranks:
+        rt.kill(r)
+    log(f"[plane] (c) a gloo plane over two CPU daemons (pids "
+        f"{[pid for _, pid in planes]}), formed in {form_s:.2f} s: "
+        f"allreduce, reduce, broadcast, allgather, reducescatter and barrier "
+        f"on seeded [4, 1024] f32 tensors match numpy; "
+        f"{PLANE_BULK_ELEMS * 4} bytes sent on the bulk lane each way arrived"
+        f" bit-equal; nothing of the group is left under {P2P_NS!r}")
+    log(f"[times] {card}: gloo plane op ms (host clock, slower rank): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in op_ms.items())
+        + "; bulk lane " + ", ".join(
+            f"{a}->{b} send {s:.1f} / recv {r:.1f}" for (a, b), (s, r) in
+            zip(((0, 1), (1, 0)), hops)))
+
+    # (d) an NCCL plane over two GPU daemons on distinct cards
+    if torch.cuda.device_count() < 2:
+        log(f"[plane] (d) did not run: an NCCL plane over distinct cards "
+            f"needs two or more, this machine has "
+            f"{torch.cuda.device_count()}")
+        return launches
+    cluster.add_daemon(num_gpus=1)
+    procs.append(cluster.daemons[-1]["proc"])
+    gpu_addrs = [d["address"] for d in cluster.daemons if d["cards"]
+                 and d["proc"].poll() is None]
+    nodes = {i.address: i.node_id.hex() for i in state.list_nodes()
+             if i.alive}
+    ranks = [rt.remote(num_gpus=1)(PlaneRank).options(
+        scheduling_strategy=NodeAffinitySchedulingStrategy(
+            node_id=nodes[a], soft=False)).remote() for a in gpu_addrs[:2]]
+    create_collective_group(ranks, 2, [0, 1], backend="nccl",
+                            group_name="plane-gpu")
+    outs = rt.get([r.op.remote("allreduce", x, group="plane-gpu")
+                   for r, x in zip(ranks, xs)], timeout=120)
+    for got, where, _ in outs:
+        assert where == "cuda:0", where
+        np.testing.assert_allclose(got, xs[0] + xs[1], rtol=1e-6, atol=1e-6)
+    rt.get([r.destroy.remote("plane-gpu") for r in ranks], timeout=60)
+    for r in ranks:
+        rt.kill(r)
+    log(f"[plane] (d) an NCCL plane over two GPU daemons on cards "
+        f"{[d['cards'] for d in cluster.daemons if d['cards']]}: allreduce "
+        f"matches numpy; ms {[round(ms, 3) for _, _, ms in outs]}")
+    return launches
 
 
 def main() -> int:
@@ -2538,20 +3051,34 @@ def main() -> int:
     # counted in each of (a)-(c))
     t0 = time.perf_counter()
     free_device_caches()
-    trainer_launches = trainer_phase(fa, device, card, step_ms, parity)
+    trainer_launches, trainer_ms = trainer_phase(fa, device, card, step_ms,
+                                                 parity)
     log(f"[trainer] phase 17 in {time.perf_counter() - t0:.1f} s")
 
     # 18. the multi-process runtime: the serving path from a GPU actor in a
     # daemon process (its launches counted in that process)
     t0 = time.perf_counter()
     free_device_caches()
-    daemon_launches = process_runtime_phase(fa, device, card, {
+    daemon_launches, daemon_rates = process_runtime_phase(fa, device, card, {
         "direct": N_REQUESTS / seconds, "actor": runtime["actor_rps"],
         "plane_threads": plane["threads"], "plane_single": plane["single"]})
     log(f"[process-runtime] phase 18 in {time.perf_counter() - t0:.1f} s")
 
+    # 19. the tensor plane: TorchTrainer training in a GPU daemon, a Serve
+    # replica there from its checkpoint (launches counted in the daemon),
+    # and collective groups across daemon processes
+    t0 = time.perf_counter()
+    free_device_caches()
+    plane_launches = tensor_plane_phase(fa, device, card, trained,
+                                        trainer_ms, {
+        "plane_threads": plane["threads"], "plane_single": plane["single"],
+        "daemon_threads": daemon_rates[f"from {N_REQUESTS} threads"],
+        "daemon_single": daemon_rates["from one thread"]})
+    log(f"[plane] phase 19 in {time.perf_counter() - t0:.1f} s")
+
     fwd_launches, dq_launches, dkv_launches = (
-        a + b for a, b in zip(trained["launches"], trainer_launches))
+        a + b + c for a, b, c in zip(trained["launches"], trainer_launches,
+                                     plane_launches))
     fwd_launches += daemon_launches
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

@@ -42,12 +42,9 @@ def spawn_daemon(state_addr: str, num_cpus: Optional[float] = None,
     it as ``CUDA_VISIBLE_DEVICES`` in its environment (CUDA reads it at
     initialisation, so it cannot be set later). An explicit
     ``num_gpus=0`` without ``cards`` hides every card; with neither, the
-    daemon inherits this process's visible cards."""
-    if tp_cpu_devices:
-        raise NotImplementedError(
-            "tp_cpu_devices needs the tensor plane (collective/"
-            "tensor_plane.py), which is not ported yet (ROADMAP Queue 1: "
-            "the process half of collective/)")
+    daemon inherits this process's visible cards. ``tp_cpu_devices`` > 0
+    puts the daemon's tensor-plane ranks on gloo
+    (``RAY_TPU_TP_CPU_DEVICES``, see ``collective/tensor_plane.py``)."""
     from ray_tpu_torch._private.state_client import _package_env
     ready = tempfile.mktemp(prefix="raytpu_daemon_ready_")
     cmd = [sys.executable, "-m", "ray_tpu_torch._private.host_daemon",
@@ -62,6 +59,8 @@ def spawn_daemon(state_addr: str, num_cpus: Optional[float] = None,
         cmd += ["--num-gpus", str(num_gpus)]
     env = _package_env()
     env.update(env_overrides or {})
+    if tp_cpu_devices:
+        env["RAY_TPU_TP_CPU_DEVICES"] = str(tp_cpu_devices)
     if cards is not None:
         env["CUDA_VISIBLE_DEVICES"] = ",".join(str(c) for c in cards)
     elif num_gpus == 0:

@@ -80,9 +80,10 @@ class ProcessCluster:
                  daemon_env: Optional[Dict[str, str]] = None):
         """The ``num_daemons`` daemons own no card
         (``CUDA_VISIBLE_DEVICES=""``); ``add_daemon(num_gpus=n)`` adds one
-        that owns n cards. ``tp_cpu_devices`` > 0 (the tensor plane's CPU
-        collectives) raises ``NotImplementedError``: the tensor plane is
-        not ported yet.
+        that owns n cards. ``tp_cpu_devices`` > 0 puts every daemon's
+        tensor-plane ranks on gloo even where it owns a card (see
+        ``collective/tensor_plane.py``: one process is one CPU device, so
+        the count itself sets no device).
 
         ``daemon_env`` is merged into EVERY daemon's environment —
         including replacements the autoscaler's node provider launches
@@ -91,11 +92,6 @@ class ProcessCluster:
         silently ending with the first casualty."""
         import subprocess
         from ray_tpu_torch._private.state_client import start_state_service
-        if tp_cpu_devices:
-            raise NotImplementedError(
-                "ProcessCluster(tp_cpu_devices=...) needs the tensor plane "
-                "(collective/tensor_plane.py), which is not ported yet "
-                "(ROADMAP Queue 1: the process half of collective/)")
         self._subprocess = subprocess
         self._data_dir = data_dir
         self._heartbeat_timeout_ms = heartbeat_timeout_ms
@@ -105,6 +101,7 @@ class ProcessCluster:
         self._daemon_args = dict(num_cpus=num_cpus,
                                  resources=resources or {},
                                  heartbeat_s=daemon_heartbeat_s,
+                                 tp_cpu_devices=tp_cpu_devices,
                                  env=dict(daemon_env or {}))
         # The port's daemons import torch at start-up: start the first
         # ones side by side (they own no card), in index order.
@@ -194,6 +191,7 @@ class ProcessCluster:
             resources=resources or self._daemon_args["resources"],
             heartbeat_s=self._daemon_args["heartbeat_s"],
             labels=labels,
+            tp_cpu_devices=self._daemon_args.get("tp_cpu_devices") or 0,
             env_overrides=env_all,
             cards=list(cards))
         return {"proc": proc, "address": addr, "cards": list(cards)}

@@ -6,15 +6,11 @@ Port of ``ray_tpu/collective/collective.py`` (parity with
 ``allreduce`` :258, ``barrier`` :298, ``reduce`` :311, ``broadcast`` :373,
 ``allgather`` :423, ``reducescatter`` :472, ``send/recv`` :531,594,
 ``destroy_collective_group`` :216) with backends ``nccl`` (CUDA tensors,
-``torch.cuda.nccl``) and ``cpu`` (numpy). Group state lives in a
+``torch.cuda.nccl`` between the threads of one process, ``torch.distributed``
+between daemon processes) and ``cpu`` (numpy). Group state lives in a
 process-global registry — the host-granular analogue of the reference's
 per-process ``GroupManager`` + named-``Info``-actor rendezvous
 (``collective.py:40-112``).
-
-Only the in-process half is ported: every rank of a group is a thread of
-this process. The JAX package's process-spanning group
-(``xla_process_group.py``, on the multi-process runtime) waits for ROADMAP
-Queue 1's process half of ``collective/``.
 
 The comms ledger records each op's duration on the host clock. For CUDA
 tensors that is the time to enqueue the op unless the caller synchronizes
@@ -36,13 +32,21 @@ from ray_tpu_torch.collective.types import Backend, CollectiveConfig, ReduceOp
 _registry_lock = threading.Lock()
 _shared_groups: Dict[str, Any] = {}        # group_name -> Shared state  # raylint: guarded-by(_registry_lock)
 _local_groups = threading.local()          # per-caller rank-bound groups
+_process_joined: set = set()               # process-level plane memberships  # raylint: guarded-by(_registry_lock)
 
 
 def _spans_processes() -> bool:
-    """True when this caller is one rank of a PROCESS-spanning group. This
-    package has only the in-process runtime (no ``DistributedRuntime``
-    yet), so every group's ranks are threads of this process."""
-    return False
+    """True when this caller is one rank of a PROCESS-spanning group: it
+    runs inside a cluster daemon (DistributedRuntime executor), so sibling
+    ranks live in other daemons and the in-process thread rendezvous can
+    never see them. Drivers and single-process runtimes keep the
+    thread-shared groups."""
+    from ray_tpu_torch._private import worker as _worker
+    runtime = _worker.try_global_runtime()
+    if runtime is None:
+        return False
+    from ray_tpu_torch._private.distributed import DistributedRuntime
+    return isinstance(runtime, DistributedRuntime) and not runtime.is_driver
 
 
 class GroupManager:
@@ -76,13 +80,26 @@ class GroupManager:
         backend = Backend(backend)
         config = cls._resolve_config(config)
         if backend == Backend.NCCL and devices is None and _spans_processes():
-            # The JAX package's rank-per-process group (XLAProcessGroup,
-            # the reference's NCCL-group path, nccl_collective_group.py:127)
-            # runs on the multi-process runtime.
-            raise NotImplementedError(
-                "process-spanning collective groups are not ported yet "
-                "(ROADMAP Queue 1: the process half of collective/, "
-                "xla_process_group.py and tensor_plane.py)")
+            # Rank-per-process group: ranks live in different daemon
+            # processes, rendezvous through the state-service KV and the
+            # torch.distributed world (the reference's NCCL-group path,
+            # nccl_collective_group.py:127). Pass ``devices`` to bind
+            # multiple ranks inside ONE daemon to local devices via the
+            # thread-rendezvous group instead.
+            from ray_tpu_torch.collective.collective_group.nccl_process_group import (  # noqa: E501
+                NCCLProcessGroup)
+            with _registry_lock:
+                if group_name in _process_joined:
+                    raise RuntimeError(
+                        f"a rank of group {group_name!r} already joined "
+                        f"from this process; one process is one rank on "
+                        f"the tensor plane. Place "
+                        f"one worker per host daemon, or pass devices= "
+                        f"for an intra-process group.")
+                _process_joined.add(group_name)
+            g = NCCLProcessGroup(world_size, rank, group_name, config=config)
+            cls._groups()[group_name] = g
+            return g
         with _registry_lock:
             shared = _shared_groups.get(group_name)
             if shared is None:
@@ -127,7 +144,9 @@ class GroupManager:
         g.destroy()
         with _registry_lock:
             shared = _shared_groups.get(group_name)
-            if shared is g._shared:
+            # A process group shares nothing in this process (the JAX
+            # package reads its missing ``_shared`` and raises here).
+            if shared is not None and shared is getattr(g, "_shared", None):
                 shared.join_count -= 1
                 if shared.join_count <= 0:
                     _shared_groups.pop(group_name, None)

@@ -186,15 +186,6 @@ class NCCLGroup:
                 and self.world_size % cfg.ranks_per_host == 0
                 and self.world_size != cfg.ranks_per_host)
 
-    def _host_if_compressed(self, x: torch.Tensor) -> Optional[np.ndarray]:
-        """The host copy of ``x`` when the group compresses it, else None
-        (the JAX package's ``quantization.active`` on ``np.asarray``)."""
-        cfg = self.config
-        if cfg is None or getattr(cfg, "compression", "none") == "none":
-            return None
-        arr = to_numpy(x)
-        return arr if quantization.active(cfg, arr) else None
-
     def _compressed(self, arr: np.ndarray, kind: str, op: ReduceOp):
         """Quantized allreduce/reducescatter: the payload is compressed at
         the host seam (the compression tier models the expensive
@@ -227,7 +218,7 @@ class NCCLGroup:
     def allreduce(self, tensor, op: ReduceOp = ReduceOp.SUM):
         self._last_wire = None
         x = self._shared.place(self.rank, tensor)
-        arr = self._host_if_compressed(x)
+        arr = host_if_compressed(self.config, x)
         if arr is not None:
             return self._compressed(arr, "allreduce", op)
         return self._shared.collective(self.rank, x,
@@ -254,7 +245,7 @@ class NCCLGroup:
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
         self._last_wire = None
         x = self._shared.place(self.rank, tensor)
-        arr = self._host_if_compressed(x)
+        arr = host_if_compressed(self.config, x)
         if arr is not None:
             return self._compressed(arr, "reducescatter", op)
         return self._shared.collective(self.rank, x,
@@ -478,6 +469,16 @@ class NCCLGroupShared:
         return rdv.run(rank, None,
                        lambda slots: self._p2p_transfer(rank,
                                                         slots[src_rank]))
+
+
+def host_if_compressed(config, x: torch.Tensor) -> Optional[np.ndarray]:
+    """The host copy of ``x`` when a group with ``config`` compresses it,
+    else None (the JAX package's ``quantization.active`` on
+    ``np.asarray``)."""
+    if config is None or getattr(config, "compression", "none") == "none":
+        return None
+    arr = to_numpy(x)
+    return arr if quantization.active(config, arr) else None
 
 
 def _scatter_rows(t: torch.Tensor, world: int) -> int:

@@ -113,14 +113,17 @@ def build_mesh(config: MeshConfig, device: DeviceLike = None,
     """Build the named mesh over ``ranks`` (default: every rank of the
     world), laid out row-major in ``AXIS_ORDER``. Every rank of the world
     must call it, also one outside ``ranks``: each process group is created
-    collectively."""
+    collectively. A bare ``cuda`` device means the ranks share this
+    machine's cards, one each; a card with its index (``cuda:0``) is this
+    rank's own, as in a daemon that owns one card."""
     device = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError(
             "build_mesh needs an initialized torch.distributed world "
             "(start the ranks with ray_tpu_torch.parallel.run_spmd)")
     world = dist.get_world_size()
-    if device.type == "cuda" and torch.cuda.device_count() < world:
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() < world):
         raise RuntimeError(
             f"a mesh over {world} ranks on cuda needs {world} cards, this "
             f"process sees {torch.cuda.device_count()}")

@@ -53,7 +53,6 @@ from ray_tpu_torch._private.config import _config
 from ray_tpu_torch.exceptions import BatchExecutionError, ServeOverloadedError
 from ray_tpu_torch.observability import perf
 from ray_tpu_torch.serve.batching import next_request_id, pad_items
-from ray_tpu_torch.serve.config import check_checkpoint
 
 # EWMA weight for the per-item execution-time estimate that sizes batches
 # and the queue_est_ms backpressure signal (local smoothing; the
@@ -62,11 +61,14 @@ _ITEM_EWMA_ALPHA = 0.3
 
 
 def _load_checkpoint(checkpoint: Any) -> Any:
-    """Resolve a deployment checkpoint to what the replica's ``__init__``
-    receives. A CheckpointRef or its dict form (DeploymentConfig rides
-    through dataclasses.asdict on deploy) raises until the checkpoint
-    engine is ported; any other value passes through."""
-    check_checkpoint(checkpoint)
+    """Resolve a deployment checkpoint to the restored tree. Accepts a
+    CheckpointRef or its dict form (DeploymentConfig rides through
+    dataclasses.asdict on deploy)."""
+    from ray_tpu_torch.checkpoint import CheckpointRef
+    if isinstance(checkpoint, dict) and "root" in checkpoint:
+        checkpoint = CheckpointRef(**checkpoint)
+    if isinstance(checkpoint, CheckpointRef):
+        return checkpoint.load()
     return checkpoint
 
 

@@ -24,6 +24,17 @@ Overload control, layered:
   latency budget (or its breaker is open), the router sheds immediately
   with :class:`ServeOverloadedError` — the proxy maps it to 503 with
   Retry-After instead of letting the queue grow without bound.
+
+A replica that rejects a request because its node is draining is not
+failing: it is about to move. The port keeps it out of the candidate set
+for ``_DRAIN_RECHECK_S`` (an actor migrated with its handle keeps its
+tag) and neither opens its breaker nor spends a retry on it. A replica
+whose actor died stays out until the membership drops it. While every
+replica is out, a request waits for the membership to change (the
+controller replaces dead replicas) instead of being shed. The JAX package
+counts the rejection as a failure and keeps dead replicas in the set, so
+its three retries go within milliseconds of a drain and the breakers then
+shed the rest (``ray_tpu/serve/_private/router.py:212-246``).
 """
 
 from __future__ import annotations
@@ -47,6 +58,11 @@ logger = logging.getLogger("ray_tpu")
 # yet (or a genuinely sub-0.1ms one) must not multiply to zero, or
 # in-flight load would stop mattering for it entirely.
 _P95_FLOOR_MS = 0.1
+# How long a replica that answered "is draining" stays out of the
+# candidate set, and how long one request waits in all for replicas that
+# are draining.
+_DRAIN_RECHECK_S = 0.5
+_DRAIN_WAIT_S = 60.0
 
 
 class Router:
@@ -65,6 +81,9 @@ class Router:
         # breaker and take the replica out of the candidate set until the
         # reset window elapses (then the next pick is the half-open probe).
         self._breakers = BreakerBoard()
+        # replica tag -> monotonic time until which it is out of the
+        # candidate set: draining (a while) or dead (inf)
+        self._away: Dict[str, float] = {}
         # Seed synchronously so the first request doesn't race the poller.
         info = ray_tpu.get(
             controller_handle.get_replica_handles.remote(deployment_name))
@@ -91,6 +110,8 @@ class Router:
             for stale in [t for t in self._in_flight if t not in current]:
                 del self._in_flight[stale]
                 self._breakers.drop(stale)
+            for stale in [t for t in self._away if t not in current]:
+                del self._away[stale]
             self._lock.notify_all()
 
     # -- scoring -----------------------------------------------------------
@@ -99,6 +120,14 @@ class Router:
         in_flight = self._in_flight.get(tag, 0)
         p95 = max(self._p95_ms.get(tag, 0.0), _P95_FLOOR_MS)
         return (in_flight + 1) * p95
+
+    def mark_away(self, tag: str, draining: bool) -> None:
+        """Take ``tag`` out of the candidate set: for ``_DRAIN_RECHECK_S``
+        when its node is draining, until the membership drops it when its
+        actor died."""
+        with self._lock:
+            self._away[tag] = (time.monotonic() + _DRAIN_RECHECK_S
+                               if draining else float("inf"))
 
     def _overloaded(self, tag: str, budget_ms: float) -> bool:
         if self._breakers.get(tag).state == OPEN:
@@ -115,10 +144,13 @@ class Router:
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
             while True:
-                n = len(self._replicas)
+                now = time.monotonic()
+                live = [t for t in self._tags
+                        if self._away.get(t, 0.0) <= now]
+                n = len(live)
                 if n:
                     budget = self._target_latency_ms
-                    if all(self._overloaded(t, budget) for t in self._tags):
+                    if all(self._overloaded(t, budget) for t in live):
                         raise ServeOverloadedError(
                             f"all {n} replicas of "
                             f"{self._deployment_name!r} exceed their "
@@ -127,7 +159,8 @@ class Router:
                     candidates = [
                         i for i, t in enumerate(self._tags)
                         if self._in_flight.get(t, 0) < self._max_concurrent
-                        and self._breakers.get(t).state != OPEN]
+                        and self._breakers.get(t).state != OPEN
+                        and self._away.get(t, 0.0) <= now]
                     if candidates:
                         # Power of two choices: sample two, keep the
                         # better-scored one.
@@ -139,13 +172,16 @@ class Router:
                         self._in_flight[tag] = \
                             self._in_flight.get(tag, 0) + 1
                         return self._replicas[best], tag
-                remaining = (None if deadline is None
-                             else deadline - time.monotonic())
+                remaining = None if deadline is None else deadline - now
                 if remaining is not None and remaining <= 0:
                     raise TimeoutError(
                         f"No replica of {self._deployment_name!r} available "
                         f"within timeout")
-                self._lock.wait(remaining if remaining is not None else 1.0)
+                # a draining mark lapses without a notify: wake for it
+                lapse = min((u - now for u in self._away.values()
+                             if u > now), default=1.0)
+                self._lock.wait(min(lapse, 1.0) if remaining is None
+                                else min(lapse, remaining))
 
     def _release(self, tag: str) -> None:
         with self._lock:
@@ -190,7 +226,9 @@ class _TrackedRef:
     another replica, like the reference router's dead-replica retry.
     Delivery outcomes feed the router's per-replica circuit breaker: only
     replica-death/retirement counts as a failure — a user exception is a
-    healthy replica faithfully reporting bad input.
+    healthy replica faithfully reporting bad input, and a draining
+    replica's rejection is a move (module note): it is re-assigned without
+    spending a retry, for up to ``_DRAIN_WAIT_S``.
     """
 
     _MAX_RETRIES = 3
@@ -211,6 +249,7 @@ class _TrackedRef:
 
     def result(self, timeout: Optional[float] = None):
         import ray_tpu_torch.exceptions as exc
+        drain_deadline = None
         while True:
             try:
                 value = ray_tpu.get(self._ref, timeout=timeout)
@@ -224,15 +263,25 @@ class _TrackedRef:
                 # replica: the request never completed. (User exceptions
                 # arrive wrapped in TaskError and are not retried, except
                 # the replica's own "draining" rejection.)
-                retryable = isinstance(
-                    e, (exc.ActorDiedError, exc.ObjectLostError)) or \
-                    "is draining" in str(e)
+                draining = "is draining" in str(e)
+                retryable = draining or isinstance(
+                    e, (exc.ActorDiedError, exc.ObjectLostError))
                 self._settle()
-                if retryable:
-                    self._router._breakers.record_failure(self._tag)
-                if not retryable or self._retries >= self._MAX_RETRIES:
+                if not retryable:
                     raise
-                self._retries += 1
+                if draining or isinstance(e, exc.ActorDiedError):
+                    self._router.mark_away(self._tag, draining)
+                if draining:
+                    now = time.monotonic()
+                    if drain_deadline is None:
+                        drain_deadline = now + _DRAIN_WAIT_S
+                    if now > drain_deadline:
+                        raise
+                else:
+                    self._router._breakers.record_failure(self._tag)
+                    if self._retries >= self._MAX_RETRIES:
+                        raise
+                    self._retries += 1
                 self._router._refresh_membership()
                 replaced = self._router.assign_request(
                     *self._request, timeout=30)

@@ -127,9 +127,10 @@ def deployment(_func_or_class=None, *, name: Optional[str] = None,
                target_latency_ms: float = 0.0):
     """Decorator declaring a class or function as a Serve deployment.
 
-    ``checkpoint`` is injected into class replicas as a ``checkpoint=``
-    init kwarg. A ``CheckpointRef`` of the checkpoint engine raises
-    ``NotImplementedError`` until the engine is ported.
+    ``checkpoint`` accepts a ``ray_tpu_torch.checkpoint.CheckpointRef``
+    (e.g. ``trainer_result.checkpoint.manifest_ref``): class replicas then
+    cold-start with the restored tree injected as a ``checkpoint=`` init
+    kwarg, loaded from the engine store on the replica itself.
 
     ``max_batch_size > 1`` turns each replica into an adaptive
     micro-batcher: ``__call__`` (or the deployed function) must accept a

@@ -5,10 +5,8 @@ AutoscalingConfig) — the knobs a deployment exposes: replica counts,
 per-replica concurrency, autoscaling bounds, rolling-update rates, and
 user_config pushed to live replicas.
 
-Port of ``ray_tpu/serve/config.py``. Two seams: the version hash digests a
-``torch.Tensor`` argument by its values (see ``version_hash``), and a
-checkpoint that points at the checkpoint engine is refused until
-``checkpoint/`` is ported (``check_checkpoint``).
+Port of ``ray_tpu/serve/config.py``. One seam: the version hash digests a
+``torch.Tensor`` argument by its values (see ``version_hash``).
 """
 
 from __future__ import annotations
@@ -74,12 +72,11 @@ class DeploymentConfig:
     ray_actor_options: Dict[str, Any] = dataclasses.field(default_factory=dict)
     health_check_period_s: float = 10.0
     graceful_shutdown_timeout_s: float = 20.0
-    # Model weights source. The JAX package takes a CheckpointRef of its
-    # checkpoint engine here (or its {"root", "manifest_name"} dict form
-    # after config serialization); the engine is not ported yet, so such a
-    # value raises (check_checkpoint). Any other value is handed to a class
-    # replica's __init__ as its checkpoint= kwarg. Changing it is a
-    # version change (rolling update).
+    # Model weights source: a ray_tpu_torch.checkpoint.CheckpointRef (or
+    # its {"root", "manifest_name"} dict form after config serialization).
+    # Replicas cold-start by loading the manifest on the replica actor —
+    # weights come from the content-addressed store, never through the
+    # controller. Changing it is a version change (rolling update).
     checkpoint: Optional[Any] = None
     # Replica-side continuous batching: > 1 turns the replica into an
     # adaptive micro-batcher — __call__ (and function deployments) must
@@ -96,9 +93,6 @@ class DeploymentConfig:
     # and the router sheds over; 0 falls back to the global
     # serve_target_latency_ms knob.
     target_latency_ms: float = 0.0
-
-    def __post_init__(self):
-        check_checkpoint(self.checkpoint)
 
     def effective_target_latency_ms(self) -> float:
         if self.target_latency_ms > 0:
@@ -158,14 +152,3 @@ class _TensorDigestPickler(pickle.Pickler):
         cls(buf, protocol=pickle.DEFAULT_PROTOCOL).dump(obj)
         return buf.getvalue()
 
-
-def check_checkpoint(checkpoint: Any) -> None:
-    """Refuse a checkpoint that points at the checkpoint engine (a
-    ``CheckpointRef`` or its dict form with ``"root"``): the engine that
-    would load it on the replica is not ported yet."""
-    if (type(checkpoint).__name__ == "CheckpointRef"
-            or (isinstance(checkpoint, dict) and "root" in checkpoint)):
-        raise NotImplementedError(
-            "serve deployments from a CheckpointRef need the checkpoint "
-            "engine (checkpoint/engine.py), which is not ported yet: "
-            "ROADMAP Queue 1 item 5")

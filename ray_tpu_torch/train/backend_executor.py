@@ -8,16 +8,23 @@ receive a device mesh), results streamed per round, failure detection
 surfaced to the trainer for restart-from-checkpoint
 (``backend_executor.py:461-531``).
 
-Workers are threads of this process (the in-process runtime). The mesh
-rule follows from that: a run of ONE worker granted at least one whole
-card gets a ``data=1`` mesh over a ``torch.distributed`` world of one on
-its first granted card. The worker initializes that world only when the
-process has none, and destroys what it initialized at ``shutdown``. More
-workers get no mesh: ``torch.distributed``'s default world is
-process-wide, so threads cannot each hold one (the JAX package gives none
-either when workers outnumber devices); their data-parallel split is the
-collective group's job. A mesh that the rule promises and that cannot be
-built raises.
+The mesh rule:
+- Workers in daemon processes (``init(address=)``) join a process-spanning
+  collective group (``NCCLProcessGroup``): the tensor plane owns the
+  ``torch.distributed`` world, one rank per worker, and each worker's mesh
+  is ``data=world`` over it, on its granted card, or on the CPU in a daemon
+  without one. The gradient allreduce of a sharded step then spans the
+  processes (the JAX package's global device mesh,
+  ``ray_tpu/train/backend_executor.py:44-74``).
+- Workers that are threads of one process: a run of ONE worker granted at
+  least one whole card gets a ``data=1`` mesh over a world of one on its
+  first granted card. The worker initializes that world only when the
+  process has none, and destroys what it initialized at ``shutdown``. More
+  workers get no mesh: ``torch.distributed``'s default world is
+  process-wide, so threads cannot each hold one (the JAX package gives
+  none either when workers outnumber devices); their data-parallel split
+  is the collective group's job.
+A mesh that the rule promises and that cannot be built raises.
 """
 
 from __future__ import annotations
@@ -76,21 +83,33 @@ class RayTrainWorker:
                        checkpoint=None, group_name: Optional[str] = None,
                        dataset_shards=None, checkpoint_spec=None):
         from ray_tpu_torch._private.runtime import task_context
+        from ray_tpu_torch.collective.collective import GroupManager
+        from ray_tpu_torch.collective.collective_group.nccl_process_group import (  # noqa: E501
+            NCCLProcessGroup)
+        from ray_tpu_torch.parallel import MeshConfig, build_mesh
         from ray_tpu_torch.train import session as session_mod
-        devices = list(task_context.devices or [])
-        mesh = self._local_mesh(devices)
+        g = GroupManager.get_group(group_name) if group_name else None
+        if isinstance(g, NCCLProcessGroup):
+            # The tensor plane spans the worker PROCESSES: the mesh is the
+            # plane's world (the reference's per-worker process group,
+            # train/torch/config.py:54-96).
+            device = g.device
+            mesh = build_mesh(MeshConfig(data=self.world_size), device)
+        else:
+            devices = list(task_context.devices or [])
+            mesh = self._local_mesh(devices)
+            device = devices[0] if mesh is not None else None
         self.session = session_mod._init_session(
             world_rank=self.rank, world_size=self.world_size,
             checkpoint=checkpoint, mesh=mesh, config=config,
             collective_group_name=group_name,
             dataset_shards=dataset_shards, checkpoint_spec=checkpoint_spec,
-            device=devices[0] if mesh is not None else None)
+            device=device)
         sess = self.session
         # Collective groups and task context are thread-local; hand the actor
         # thread's bindings (its device grant included) to the
         # training-loop thread.
-        from ray_tpu_torch.collective.collective import (GroupManager,
-                                                         _local_groups)
+        from ray_tpu_torch.collective.collective import _local_groups
         groups = GroupManager._groups()
         ctx = (task_context.node_id, task_context.actor_id,
                task_context.job_id, task_context.devices)

@@ -46,7 +46,8 @@ class _TrainSession:
         self.results: "queue.Queue" = queue.Queue()
         self.checkpoint = checkpoint
         self.mesh = mesh
-        # the card the mesh is on (the worker's first granted one)
+        # the device the mesh is on: the worker's granted card, or the CPU
+        # of a daemon without one
         self.device = device
         self.config = config or {}
         self.finished = threading.Event()
@@ -253,11 +254,13 @@ def get_local_rank() -> int:
 
 
 def get_mesh():
-    """The ``parallel.Mesh`` assigned to this worker, or None. A run of one
-    worker granted at least one whole card gets a ``data=1`` mesh over a
-    ``torch.distributed`` world of one on its first granted card; workers
-    that share the process get none (the default world is process-wide,
-    so threads cannot each hold one)."""
+    """The ``parallel.Mesh`` assigned to this worker, or None. Workers in
+    daemon processes get a ``data=world`` mesh over the tensor plane's
+    world; a run of one in-process worker granted at least one whole card
+    gets a ``data=1`` mesh over a world of one on its first granted card;
+    workers that share the process get none (the default world is
+    process-wide, so threads cannot each hold one). See
+    ``backend_executor``'s mesh rule."""
     s = _get_session()
     return s.mesh if s else None
 
@@ -275,23 +278,34 @@ def get_collective_group_name() -> Optional[str]:
 
 
 def shard_batch(array, spec=None):
-    """Place this worker's LOCAL batch (numpy or tensor) on the session
-    mesh's card, sharded over the mesh's data-parallel axes, as the
-    DTensor that ``make_lm_train_step(cfg, get_mesh())``'s step takes.
+    """Contribute this worker's LOCAL batch (numpy or tensor) as its shard
+    of the global batch on the session mesh, sharded over the mesh's
+    data-parallel axes: the DTensor that ``make_lm_train_step(cfg,
+    get_mesh())``'s step takes. Its global shape is the local one times
+    the mesh's size along each sharded dim. On a process-spanning mesh
+    each worker so trains on its own data, as the JAX package's
+    ``jax.make_array_from_process_local_data`` (``session.py:228-255``).
 
     ``spec``: the DTensor placements (one per mesh dim); the default comes
     from the ``batch`` entry of the rules table (``("data", "fsdp")``),
-    matching what ``train.step.batch_sharding`` gives the step. The JAX
-    package places the batch with ``NamedSharding`` of the same entry
-    (``session.py:228-255``).
+    matching what ``train.step.batch_sharding`` gives the step.
     """
-    from ray_tpu_torch.parallel.sharding import ShardingRules, place_local
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ray_tpu_torch.parallel.sharding import ShardingRules
     s = _get_session()
     if s is None or s.mesh is None:
         raise RuntimeError("shard_batch() needs a session with a mesh")
     t = torch.as_tensor(array if isinstance(array, torch.Tensor)
-                        else np.asarray(array)).to(s.device)
+                        else np.asarray(array)).to(s.device).contiguous()
     if spec is None:
         spec = ShardingRules().sharding(
             s.mesh, ("batch",) + (None,) * (max(1, t.ndim) - 1))
-    return place_local(t, s.mesh, spec)
+    shape = list(t.shape)
+    for axis, p in zip(s.mesh.axis_names, spec):
+        if isinstance(p, Shard):
+            shape[p.dim] *= s.mesh.shape[axis]
+    shape = torch.Size(shape)
+    return DTensor.from_local(t, s.mesh.device_mesh, spec, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())

@@ -8,7 +8,10 @@ rounds, and on worker failure restarts the group from the latest
 checkpoint — the last committed engine manifest when ``storage_path`` is
 set — up to ``FailureConfig.max_failures`` (``backend_executor.py:461-531``).
 Inside the loop the user gets a mesh (``session.get_mesh``, see
-``backend_executor``) and a collective group, ``nccl`` by default.
+``backend_executor``) and a collective group, ``nccl`` by default. Workers
+in daemon processes (``init(address=)``) join the tensor plane with it: on
+NCCL where the daemon owns a card, on gloo in a CPU daemon, as the JAX
+package's ``xla`` backend runs on CPU daemons.
 
 ``datasets=`` waits for the port of ``data/`` (ROADMAP Queue 1 item 6b).
 """
@@ -83,7 +86,7 @@ class TorchTrainer:
                 executor.start_training(self._train_loop, self._config,
                                         checkpoint,
                                         checkpoint_spec=self._checkpoint_spec(
-                                            engine_root))
+                                            engine_root, checkpoint))
                 if restart_t0 is not None:
                     dt = time.monotonic() - restart_t0
                     # Feeds the "auto" cadence solver on the NEXT spec:
@@ -139,7 +142,7 @@ class TorchTrainer:
         name = self.run_config.name or "experiment"
         return os.path.join(storage, name, "checkpoints")
 
-    def _checkpoint_spec(self, engine_root: Optional[str]):
+    def _checkpoint_spec(self, engine_root: Optional[str], checkpoint=None):
         if engine_root is None:
             return None
         cfg = self.run_config.checkpoint_config
@@ -156,9 +159,22 @@ class TorchTrainer:
         return {"root": engine_root,
                 "num_to_keep": cfg.num_to_keep,
                 "frequency": cfg.checkpoint_frequency,
-                "base_step": self._committed_step(engine_root),
+                "base_step": self._base_step(engine_root, checkpoint),
                 "run_token": uuid.uuid4().hex[:8],
                 "restart_cost_s": self._restart_cost_s}
+
+    def _base_step(self, engine_root: str, checkpoint) -> int:
+        """The step an attempt's saves number after: that of the committed
+        manifest it resumes from. The newest commit is not it when a failed
+        attempt's writer thread commits a later step after the restart
+        picked its checkpoint; numbering after that one would skip a step
+        (the JAX package reads the newest commit here)."""
+        ref = getattr(checkpoint, "manifest_ref", None)
+        if ref is not None and ref.manifest_name is not None and \
+                os.path.abspath(ref.root) == os.path.abspath(engine_root):
+            from ray_tpu_torch.checkpoint import read_manifest
+            return int(read_manifest(ref.root, ref.manifest_name).step)
+        return self._committed_step(engine_root)
 
     def _committed_step(self, engine_root: str) -> int:
         from ray_tpu_torch.checkpoint import (CheckpointError, read_manifest,

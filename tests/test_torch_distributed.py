@@ -458,7 +458,21 @@ def test_an_actor_that_cannot_be_shipped_dies_with_the_cause(clusters):
         pkg.get(h.ping.remote(), timeout=60)
 
 
-def test_tensor_plane_cluster_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="tensor plane"):
-        ray_tpu_torch.cluster_utils.ProcessCluster(num_daemons=1,
-                                                   tp_cpu_devices=2)
+def test_a_daemon_task_spans_processes_under_both_packages(clusters):
+    """Inside a daemon's executor a collective group is process-spanning
+    (ROADMAP Queue 3, closed 3); in the driver it is not."""
+    import importlib
+
+    def spans(pkg, cluster):
+        @pkg.remote
+        def probe():
+            import importlib
+            mod = importlib.import_module(
+                f"{pkg.__name__}.collective.collective")
+            return mod._spans_processes()
+
+        mod = importlib.import_module(f"{pkg.__name__}.collective.collective")
+        return pkg.get(probe.remote(), timeout=60), mod._spans_processes()
+
+    assert _both(clusters, spans) == {"jax": (True, False),
+                                      "torch": (True, False)}

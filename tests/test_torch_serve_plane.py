@@ -8,8 +8,9 @@ values, and the class names of what they raise, must be equal. The
 scenarios mirror ``tests/test_serve.py`` and ``tests/test_serve_scale.py``.
 Then the tiny transformer served by both packages (``JaxPredictor`` against
 ``TorchPredictor`` on the CPU, through a handle and through HTTP), and the
-seams only the port has: the version hash of tensor arguments, the
-checkpoint and autopilot refusals, GPU grants and the release of a deleted
+seams only the port has: the version hash of tensor arguments, deployments
+from a checkpoint of the JAX engine, the autopilot refusal, GPU grants and
+the release of a deleted
 replica's weights. Checks that need a card are in ``chip_smoke.py``'s
 phase 16.
 """
@@ -587,24 +588,45 @@ def test_version_hash_of_tensor_args_follows_values():
         assert version(ray_tpu_torch, *args) == version(ray_tpu, *args)
 
 
-def test_checkpoint_ref_is_refused_until_the_engine_is_ported(instances):
-    from ray_tpu.checkpoint import CheckpointRef
-    from ray_tpu_torch.serve._private.replica import _load_checkpoint
-    serve = instances["ray_tpu_torch"].serve
+def test_class_deployments_load_a_checkpoint_ref_like_jax(instances,
+                                                         tmp_path):
+    """The JAX checkpoint engine commits a small tree; a class deployment
+    in each package, made from the engine's ``CheckpointRef`` and from its
+    dict form, loads it on the replica and answers alike. A function
+    deployment still refuses a checkpoint (the twin of
+    ``tests/test_serve.py::test_function_deployment_rejects_checkpoint``)."""
+    from ray_tpu.checkpoint import CheckpointEngine
+    rng = np.random.default_rng(5)
+    tree = {"w": rng.standard_normal((3, 4)).astype(np.float32),
+            "b": rng.standard_normal(4).astype(np.float32)}
+    root = str(tmp_path / "ckpt")
+    engine = CheckpointEngine(root)
+    manifest = engine.save(tree, step=1).result(timeout=60)
+    engine.close()
+    x = rng.standard_normal(3).astype(np.float32).tolist()
 
-    class Model:
-        def __call__(self, x):
-            return x
+    class Linear:
+        def __init__(self, checkpoint):
+            self.w = np.asarray(checkpoint["w"])
+            self.b = np.asarray(checkpoint["b"])
 
-    for ckpt in (CheckpointRef("/ckpt/base"),
-                 dataclasses.asdict(CheckpointRef("/ckpt/base", "m1"))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            serve.deployment(checkpoint=ckpt)(Model)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            _load_checkpoint(ckpt)
-    assert _load_checkpoint({"w": 1}) == {"w": 1}
-    with pytest.raises(ValueError, match="class"):
-        serve.deployment(checkpoint={"root": "/ckpt"})(lambda x: x)
+        def __call__(self, v):
+            return (np.asarray(v, np.float32) @ self.w + self.b).tolist()
+
+    answers = {}
+    for rt in PACKAGES:
+        p = instances[rt.__name__]
+        ref = sub(rt, "checkpoint").CheckpointRef(root, manifest)
+        for form, ckpt in (("ref", ref), ("dict", dataclasses.asdict(ref))):
+            name = f"linear-{form}"
+            h = p.serve.run(p.serve.deployment(checkpoint=ckpt)(Linear)
+                            .options(name=name).bind(), route_prefix=None)
+            answers[rt.__name__, form] = h.remote(x).result(timeout=30)
+            finish(p, h, name)
+        with pytest.raises(ValueError, match="class"):
+            p.serve.deployment(checkpoint=ckpt)(lambda v: v)
+    want = (np.asarray(x, np.float32) @ tree["w"] + tree["b"]).tolist()
+    assert set(map(tuple, answers.values())) == {tuple(want)}, answers
 
 
 def test_autopilot_actuators_are_refused_for_batched_deployments(instances):

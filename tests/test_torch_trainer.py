@@ -341,3 +341,24 @@ def test_no_path_falls_back_to_the_cpu():
     result = fit(ray_tpu_torch, always_crash)
     assert type(result.error).__name__ == "TaskError"
     assert "needs a CUDA card" in str(result.error)
+
+
+def test_a_restart_numbers_its_saves_after_the_commit_it_resumes(tmp_path):
+    """A failed attempt's writer may commit a later step after the restart
+    picked the commit it resumes from: the new attempt's saves number
+    after the resumed commit, not after the newest (the JAX package reads
+    the newest, so its steps skip one)."""
+    from ray_tpu_torch.air import Checkpoint, RunConfig
+    from ray_tpu_torch.checkpoint import CheckpointEngine
+    from ray_tpu_torch.train import TorchTrainer
+    trainer = TorchTrainer(lambda config: None, collective_backend=None,
+                           run_config=RunConfig(name="race",
+                                                storage_path=str(tmp_path)))
+    root = trainer._engine_root()
+    engine = CheckpointEngine(root)
+    names = [engine.save({"w": np.full(4, s, np.float32)},
+                         step=s).result(timeout=60) for s in (1, 2, 3)]
+    engine.close()
+    resumed = Checkpoint.from_manifest(root, names[1])
+    assert trainer._checkpoint_spec(root, resumed)["base_step"] == 2
+    assert trainer._checkpoint_spec(root)["base_step"] == 3
