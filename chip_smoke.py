@@ -179,7 +179,30 @@ Phases, each of which asserts:
    more (with one, the phase says it did not run); (e) ``serve.shutdown``,
    ``shutdown`` and ``cluster.shutdown``: no process left, the card's free
    memory back within 64 MiB of its value before (a), the checkpoint
-   directory deleted.
+   directory deleted;
+20. data plane (``ray_tpu_torch.data`` on ``init(num_cpus=8)``): (a) 64
+   seeded rows of phase 5's kind (lengths 1..1024, right-padded to 1024,
+   with a ``length`` column) as a tabular dataset of 8 blocks (a
+   ``tokens`` column of arrays), through ``BatchPredictor`` and a
+   ``TorchPredictor`` at phase 5's width, batches of 8, keeping
+   ``length``: in f32 the first 16 rows' logits at ``length - 1`` match an
+   unpadded dense run at 1e-3, then 1 warm-up and 3 measured bf16 runs,
+   all 64 rows finite; the predictor built once per run, n_layers forward
+   launches per batch; rows/s and real tokens/s beside phase 5's; (b)
+   ``TorchTrainer(datasets={"train": ds})``, one ``use_gpu`` worker:
+   phase 9's model and seed, ``ds`` 6 blocks of phase 9's batch shape
+   (int32, block 0 phase 9's batch); the loop reads
+   ``get_dataset_shard("train").iter_device_batches(sharding=(mesh,
+   batch_sharding(mesh)), prefetch_batches=2)``: every batch a CUDA
+   ``DTensor`` whose local tensor equals its block, 1 + 5 steps, step 0's
+   loss equal to phase 9's at ``TRAIN_RTOL``, losses finite, 2 x n_layers /
+   n_layers / n_layers launches a step; the step's ms beside phases 9 and
+   17 (a), the goodput ledger's ``data_wait`` share, one batch's pin and
+   copy on the host clock; (c) ``shutdown``: the card's free memory back
+   within 64 MiB of its value before (a), measured after 12 new threads'
+   first matmuls (whose cuBLAS handles, which PyTorch pools for the life
+   of the process, (a) and (b) would otherwise make) and printed with
+   what those took.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -287,6 +310,13 @@ PROCESS_MEMORY_SLACK = 64 * 2**20
 PLANE_DIR = "build/plane"
 PLANE_BULK_ELEMS = 2 * 1024 * 1024
 PLANE_HEARTBEAT_TIMEOUT_MS = 10_000
+# Phase 20: the data plane. DATA_ROWS rows over DATA_BLOCKS blocks, read in
+# batches of DATA_BATCH; the first DATA_CHECKED f32 rows against dense.
+DATA_ROWS = 64
+DATA_BLOCKS = 8
+DATA_BATCH = 8
+DATA_CHECKED = 16
+COPY_RUNS = 20
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -2891,6 +2921,312 @@ def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
     return launches
 
 
+# -- phase 20: the data plane --------------------------------------------------
+
+
+def row_logits(cfg, params, batch):
+    """f32 logits at each row's last real token, ``batch["length"] - 1``."""
+    return last_token_logits(cfg, params, {"tokens": batch["tokens"],
+                                           "last": batch["length"] - 1})
+
+
+def data_rows(width=SERVE_WIDTH, n_rows=DATA_ROWS):
+    """Phase 20 (a)'s rows: phase 5's kind of seeded requests, right-padded
+    to ``max_seq_len``, as dicts ``{"tokens", "length"}``. Returns
+    (lengths, requests, rows)."""
+    _, lengths, requests = seeded_requests(width, n_rows)
+    rows = []
+    for r in requests:
+        tokens = np.zeros(width["max_seq_len"], np.int64)
+        tokens[:len(r)] = r
+        rows.append({"tokens": tokens, "length": len(r)})
+    return lengths, requests, rows
+
+
+def counting_predictor():
+    """``TorchPredictor`` whose builds are counted (``builds``)."""
+    from ray_tpu_torch.air import TorchPredictor
+    lock = threading.Lock()
+
+    class CountingPredictor(TorchPredictor):
+        builds = 0
+
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            with lock:
+                cls.builds += 1
+            return super().from_checkpoint(checkpoint, **kwargs)
+
+    return CountingPredictor
+
+
+def batch_predict(rt, fa, ds, cfg, params, device, n_batches):
+    """One ``BatchPredictor.predict`` over ``ds``: (predictions [rows,
+    vocab], the kept lengths, seconds, forward launches). The predictor
+    must be built once and launch n_layers kernels per batch."""
+    from ray_tpu_torch.air import BatchPredictor, Checkpoint
+    predictor_cls = counting_predictor()
+    bp = BatchPredictor.from_checkpoint(
+        Checkpoint.from_dict({"params": params}), predictor_cls,
+        apply_fn=functools.partial(row_logits, cfg), device=device)
+    fa.launches = 0
+    t0 = time.perf_counter()
+    out = bp.predict(ds, batch_size=DATA_BATCH,
+                     feature_columns=["tokens", "length"],
+                     keep_columns=["length"]).to_pandas()
+    seconds = time.perf_counter() - t0
+    launches = fa.launches
+    assert predictor_cls.builds == 1, predictor_cls.builds
+    assert launches == cfg.n_layers * n_batches, (launches, n_batches)
+    assert list(out.columns) == ["length", "predictions"], out.columns
+    return (np.stack(out["predictions"].tolist()),
+            out["length"].to_numpy(), seconds, launches)
+
+
+def batch_predictor_phase(rt, fa, device, card, direct, width=SERVE_WIDTH,
+                          n_rows=DATA_ROWS):
+    """Phase 20 (a). ``direct``: phase 5's (requests/s, tokens/s). Returns
+    the forward launches of its runs."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    lengths, requests, rows = data_rows(width, n_rows)
+    ds = rt.data.from_items(rows, parallelism=DATA_BLOCKS)
+    assert ds.num_blocks() == DATA_BLOCKS and ds.columns() == [
+        "tokens", "length"], ds
+    # map_batches cuts each block into batches of DATA_BATCH rows
+    n_batches = sum(math.ceil(len(rt.get(r)) / DATA_BATCH)
+                    for r in ds.get_internal_block_refs())
+    cfg32 = TransformerConfig(**width, dtype=torch.float32, use_flash=True)
+    params = transformer.init_params(
+        cfg32, torch.Generator(device=device).manual_seed(SEED), device)
+    preds, kept, seconds32, total = batch_predict(rt, fa, ds, cfg32, params,
+                                                  device, n_batches)
+    assert preds.shape == (n_rows, width["vocab_size"]), preds.shape
+    assert kept.tolist() == lengths.tolist()
+    check_dense(cfg32, params, requests[:DATA_CHECKED],
+                preds[:DATA_CHECKED], device)
+    log(f"[data] (a) {n_rows} rows of 1..{width['max_seq_len']} tokens "
+        f"(lengths {lengths.tolist()}), padded to {width['max_seq_len']}, "
+        f"tabular over {DATA_BLOCKS} blocks; BatchPredictor, f32: the "
+        f"first {DATA_CHECKED} rows match the unpadded dense run at "
+        f"rtol=atol=1e-3; predictor built once; {total} forward launches "
+        f"in {n_batches} batches ({seconds32:.2f} s)")
+    cfg16 = TransformerConfig(**width, dtype=torch.bfloat16, use_flash=True)
+    params16 = transformer.cast_params(params, torch.bfloat16)
+    del params
+    runs = []
+    for i in range(1 + SERVE_RUNS):
+        preds16, _, seconds, launches = batch_predict(
+            rt, fa, ds, cfg16, params16, device, n_batches)
+        assert np.isfinite(preds16).all(), "non-finite logits"
+        total += launches
+        if i:
+            runs.append(seconds)
+    seconds = statistics.median(runs)
+    n_tokens = int(lengths.sum())
+    log(f"[times] {card}: BatchPredictor bf16 {n_rows / seconds:.2f} "
+        f"rows/s, {n_tokens / seconds:.0f} real tokens/s (median of "
+        f"{SERVE_RUNS} runs of {n_rows} rows, {n_tokens} real tokens each, "
+        f"{seconds:.4f} s; runs in s: "
+        + ", ".join(f"{t:.4f}" for t in runs)
+        + f"); phase 5 direct {direct[0]:.2f} requests/s, {direct[1]:.0f} "
+        f"tokens/s in this run; every run's {n_rows} rows finite, the "
+        f"predictor built once a run, {cfg16.n_layers} forward launches a "
+        f"batch")
+    return total
+
+
+def data_trainer_loop(config):
+    """Phase 20 (b): the loop a user hands ``TorchTrainer(datasets=)``. It
+    builds ``make_lm_train_step`` on the session's mesh from
+    ``config["seed"]``'s weights and takes one step on every batch of its
+    dataset shard, read through ``iter_device_batches`` (sharded over the
+    mesh, two batches prefetched), reporting each."""
+    from torch.distributed.tensor import DTensor
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.parallel import batch_sharding
+    from ray_tpu_torch.train import make_lm_train_step, session
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    device = torch.device(config["device"])
+    cfg = TransformerConfig(**config["width"], dtype=torch.bfloat16,
+                            use_flash=True)
+    mesh = session.get_mesh()
+    if device.type == "cuda":
+        assert mesh is not None and set(mesh.shape.values()) == {1}, mesh
+    init_fn, step_fn, _ = make_lm_train_step(cfg, mesh, device=device)
+    state = init_fn(torch.Generator(device=device).manual_seed(
+        config["seed"]))
+    batches = session.get_dataset_shard("train").iter_device_batches(
+        batch_size=config["batch"], drop_last=True, device=device,
+        sharding=None if mesh is None else (mesh, batch_sharding(mesh)),
+        prefetch_batches=2)
+    for step, batch in enumerate(batches):
+        tokens = batch["value"]
+        before = launch_counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        loss = metrics["loss"].item()
+        grad_norm = metrics["grad_norm"].item()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launched = tuple(a - b for a, b in zip(launch_counts(fa), before))
+        local = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+        want = config["blocks"][step]
+        session.report({
+            "step": step, "loss": loss, "grad_norm": grad_norm,
+            "step_ms": step_ms, "launches": launched,
+            "dtensor": isinstance(tokens, DTensor),
+            "device": local.device.type, "shape": tuple(tokens.shape),
+            "equal": bool(np.array_equal(local.cpu().numpy(), want))})
+
+
+def data_trainer_phase(rt, fa, device, card, phase9, phase17_ms,
+                       width=SERVE_WIDTH, batch=TRAIN_BATCH,
+                       steps=TRAIN_STEPS):
+    """Phase 20 (b). ``phase9``: phase 9's results; ``phase17_ms``: phase
+    17 (a)'s step ms. Returns the launches (forward, dq, dkv)."""
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.observability import goodput
+    from ray_tpu_torch.train import TorchTrainer
+
+    n = width["n_layers"]
+    per_step = (2 * n, n, n)
+    first = np.random.default_rng(SEED + 4).integers(
+        0, width["vocab_size"], size=batch)
+    rest = np.random.default_rng(SEED + 20).integers(
+        0, width["vocab_size"], size=(steps * batch[0], batch[1]))
+    tokens = np.concatenate([first, rest]).astype(np.int32)
+    blocks = np.split(tokens, steps + 1)
+    ds = rt.data.from_numpy(blocks)
+    assert ds.num_blocks() == steps + 1
+    # one batch's pin and copy, on the host clock
+    host = torch.from_numpy(blocks[0])
+    copy_ms = []
+    for _ in range(COPY_RUNS):
+        t0 = time.perf_counter()
+        host.pin_memory().to(device, non_blocking=True)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    config = dict(width=width, device=str(device), seed=SEED,
+                  batch=batch[0], blocks=blocks)
+    trainer = TorchTrainer(
+        data_trainer_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=1,
+                                     use_gpu=device.type == "cuda"),
+        datasets={"train": ds}, results_timeout_s=TRAINER_TIMEOUT_S)
+    goodput.reset()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts(fa)
+    assert result.error is None, result.error
+    ledger = goodput.snapshot()["jobs"]["default"]
+    hist = result.metrics_history
+    assert [m["step"] for m in hist] == list(range(steps + 1)), hist
+    losses = [m["loss"] for m in hist]
+    norms = [m["grad_norm"] for m in hist]
+    assert all(np.isfinite(losses + norms)), (losses, norms)
+    np.testing.assert_allclose(losses[0], phase9["losses"][0],
+                               rtol=TRAIN_RTOL)
+    assert all(m["launches"] == per_step for m in hist), \
+        [m["launches"] for m in hist]
+    assert launches == tuple((steps + 1) * c for c in per_step), launches
+    assert all(m["equal"] and m["shape"] == batch for m in hist), hist
+    if device.type == "cuda":
+        assert all(m["dtensor"] and m["device"] == "cuda" for m in hist), \
+            hist
+    step_ms = statistics.median(m["step_ms"] for m in hist[1:])
+    share = ledger["cats"].get("data_wait", 0.0) / ledger["wall_s"]
+    log(f"[data] (b) TorchTrainer(datasets={{'train': ds}}), 1 use_gpu "
+        f"worker, {steps + 1} int32 blocks of {batch[0]} x {batch[1]} "
+        f"through iter_device_batches(sharding=(mesh, batch_sharding(mesh))"
+        f", prefetch_batches=2): every batch a CUDA DTensor equal to its "
+        f"block; losses {losses} (step 0 vs phase 9's {phase9['losses'][0]}"
+        f" at rtol {TRAIN_RTOL}), grad norms {norms}; launches a step "
+        f"{per_step} (forward, dq, dkv), {launches} in {steps + 1} steps; "
+        f"fit() {fit_s:.1f} s")
+    log(f"[times] {card}: TorchTrainer bf16 step fed by the dataset "
+        f"{step_ms:.3f} ms (median of {steps}; steps in ms: "
+        + ", ".join(f"{m['step_ms']:.1f}" for m in hist)
+        + f"), phase 9's direct step {phase9['step_ms']:.3f} ms, phase 17 "
+        f"(a)'s {phase17_ms:.3f} ms in this run; goodput ledger data_wait "
+        f"{ledger['cats'].get('data_wait', 0.0):.4f} s of "
+        f"{ledger['wall_s']:.3f} s wall ({100 * share:.3f}%); one "
+        f"{batch[0]} x {batch[1]} int32 batch's pin and copy "
+        f"{statistics.median(copy_ms):.3f} ms on the host clock (median of "
+        f"{COPY_RUNS})")
+    return launches
+
+
+def matmul_threads(n, device):
+    """A bf16 and an f32 matmul on each of ``n`` new threads running at
+    once. Returns the device bytes this took outside the caching allocator:
+    PyTorch gives each thread that runs a matmul its own cuBLAS handles and
+    keeps them, pooled for reuse by later threads, for the life of the
+    process."""
+    free_device_caches()
+    before = torch.cuda.mem_get_info(device)[0]
+    start = threading.Barrier(n)
+
+    def work():
+        start.wait(timeout=60)
+        for dt in (torch.bfloat16, torch.float32):
+            a = torch.ones(64, 64, device=device, dtype=dt)
+            (a @ a).sum().item()
+
+    threads = [threading.Thread(target=work) for _ in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    free_device_caches()
+    return before - torch.cuda.mem_get_info(device)[0]
+
+
+def data_plane_phase(fa, device, card, direct, phase9, phase17_ms):
+    """Phase 20: the data plane feeding the flagship through
+    ``BatchPredictor`` and ``TorchTrainer(datasets=)``, then the card's
+    memory back. Returns the launches (forward, dq, dkv) of (a) and (b)."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data  # noqa: F401
+    # (a)'s map tasks and (b)'s worker run matmuls on up to DATA_BLOCKS + 2
+    # threads at once, more than earlier phases: their cuBLAS handles are
+    # made here, so that (c) sees what the phase itself leaves behind.
+    pooled = matmul_threads(DATA_BLOCKS + 4, device)
+    log(f"[data] {DATA_BLOCKS + 4} new threads' first matmuls took {pooled} "
+        f"bytes of device memory outside the caching allocator (cuBLAS "
+        f"handles, pooled for the process's life); 4 more took "
+        f"{matmul_threads(4, device)}")
+    free_device_caches()
+    free_before = torch.cuda.mem_get_info(device)[0]
+    config = {k: str(REPO / v) for k, v in RUNTIME_CONFIG.items()}
+    rt.init(num_cpus=8, _system_config=config)
+    try:
+        forward = batch_predictor_phase(rt, fa, device, card, direct)
+        free_device_caches()
+        trained = data_trainer_phase(rt, fa, device, card, phase9,
+                                     phase17_ms)
+    finally:
+        rt.shutdown()
+    free_after = None
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline:
+        free_device_caches()
+        free_after = torch.cuda.mem_get_info(device)[0]
+        if free_before - free_after <= PROCESS_MEMORY_SLACK:
+            break
+        time.sleep(0.2)
+    assert free_before - free_after <= PROCESS_MEMORY_SLACK, (
+        free_before, free_after)
+    log(f"[data] (c) shutdown(): the card's free memory {free_before} bytes "
+        f"before (a), {free_after} after")
+    return (trained[0] + forward, trained[1], trained[2])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3076,9 +3412,20 @@ def main() -> int:
         "daemon_single": daemon_rates["from one thread"]})
     log(f"[plane] phase 19 in {time.perf_counter() - t0:.1f} s")
 
+    # 20. the data plane: BatchPredictor over a tabular dataset and
+    # TorchTrainer(datasets=) fed through iter_device_batches (launches
+    # counted in each)
+    t0 = time.perf_counter()
+    free_device_caches()
+    data_launches = data_plane_phase(
+        fa, device, card, (N_REQUESTS / seconds, served["n_tokens"] / seconds),
+        trained, trainer_ms)
+    log(f"[data] phase 20 in {time.perf_counter() - t0:.1f} s")
+
     fwd_launches, dq_launches, dkv_launches = (
-        a + b + c for a, b, c in zip(trained["launches"], trainer_launches,
-                                     plane_launches))
+        a + b + c + d for a, b, c, d in zip(trained["launches"],
+                                            trainer_launches, plane_launches,
+                                            data_launches))
     fwd_launches += daemon_launches
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

@@ -20,7 +20,9 @@ On top of it: ``models.transformer`` runs its attention through the CUDA
 flash-attention kernels in ``ops``, ``air.TorchPredictor`` holds the weights
 on the card, ``serve`` runs deployments in replica actors behind handles and
 an HTTP proxy (``serve.batch`` pads requests to static buckets), ``train``
-steps the model, and ``parallel`` shards the step over ``torch.distributed``.
+steps the model, ``data`` feeds it datasets (``iter_device_batches``,
+``air.BatchPredictor``, ``TorchTrainer(datasets=)``), and ``parallel``
+shards the step over ``torch.distributed``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA where there is none raises rather than falling back.

@@ -692,6 +692,9 @@ class Runtime:
                     continue
                 if action == "wait":
                     still_waiting.append(item)
+            # An idle dispatcher must not keep the pass's last task spec,
+            # and with it the task's arguments, until the next submit.
+            item = pending = None
             # Batched remote pushes accumulate during the pass; ship them
             # as one frame per daemon (no-op for the in-process runtime).
             try:

@@ -228,10 +228,10 @@ def get_checkpoint():
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's split of ``datasets={name: ds}`` (reference
-    ``session.get_dataset_shard``). ``TorchTrainer`` refuses ``datasets=``
-    until ``data/`` is ported (ROADMAP Queue 1 item 6b), so this is None
-    there."""
+    """This worker's split of ``TorchTrainer(datasets={name: ds})`` — a
+    ``ray_tpu_torch.data.DataIterator`` over its equal share of the rows
+    (reference ``session.get_dataset_shard``); None outside a session or
+    for a name the trainer was not given."""
     s = _get_session()
     if s is None or name not in s.dataset_shards:
         return None

@@ -11,9 +11,10 @@ Inside the loop the user gets a mesh (``session.get_mesh``, see
 ``backend_executor``) and a collective group, ``nccl`` by default. Workers
 in daemon processes (``init(address=)``) join the tensor plane with it: on
 NCCL where the daemon owns a card, on gloo in a CPU daemon, as the JAX
-package's ``xla`` backend runs on CPU daemons.
-
-``datasets=`` waits for the port of ``data/`` (ROADMAP Queue 1 item 6b).
+package's ``xla`` backend runs on CPU daemons. ``datasets=`` splits each
+``ray_tpu_torch.data`` Dataset over the workers (``streaming_split(n,
+equal=True)``); a worker reads its shard through
+``session.get_dataset_shard``.
 """
 
 from __future__ import annotations
@@ -52,13 +53,23 @@ class TorchTrainer:
         self._collective_backend = collective_backend
         self._resume_from = resume_from_checkpoint
         self._results_timeout_s = results_timeout_s
-        if datasets:
-            raise NotImplementedError(
-                "TorchTrainer(datasets=...) is not ported yet (ROADMAP Queue "
-                "1 item 6b: data/)")
+        # name -> ray_tpu_torch.data.Dataset; each is streaming_split across
+        # the worker group and handed out via session.get_dataset_shard
+        # (reference: DataParallelTrainer datasets= + DataConfig)
+        self._datasets = datasets or {}
         # Largest observed elastic-restart downtime (s); checkpoint specs
         # carry it so the "auto" cadence solver prices failures correctly.
         self._restart_cost_s = 0.0
+
+    def _dataset_shards(self):
+        if not self._datasets:
+            return None
+        n = self.scaling_config.num_workers
+        shard_sets: list = [{} for _ in range(n)]
+        for name, ds in self._datasets.items():
+            for i, it in enumerate(ds.streaming_split(n, equal=True)):
+                shard_sets[i][name] = it
+        return shard_sets
 
     def fit(self) -> Result:
         if not ray_tpu_torch.is_initialized():
@@ -85,6 +96,7 @@ class TorchTrainer:
                 executor.start()
                 executor.start_training(self._train_loop, self._config,
                                         checkpoint,
+                                        dataset_shards=self._dataset_shards(),
                                         checkpoint_spec=self._checkpoint_spec(
                                             engine_root, checkpoint))
                 if restart_t0 is not None:
