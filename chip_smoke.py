@@ -55,8 +55,9 @@ Phases, each of which asserts:
    model TFLOP/s and MFU (``bench.py``'s FLOP count), peak memory, and a
    trace as in phase 9;
 13. bench: ``python3 -m ray_tpu_torch.bench`` as a user runs it, in a
-   subprocess; it exits 0, its headline has every device figure and no
-   error but ``ppo``'s, and its transformer section launched the three
+   subprocess; it exits 0, its headline has every device figure (PPO's
+   env-steps/s with the learner on the card among them) and no error, and
+   its transformer section launched the three
    kernels 2 x n_layers / n_layers / n_layers times a step;
 14. sharded step (``ray_tpu_torch.parallel``): (a) ``dryrun_multichip`` over
    every card of the machine on NCCL, one rank per card; (b) in this
@@ -165,6 +166,13 @@ Phases, each of which asserts:
    kernels line); the last step reports the parameters (f32, ~1.07 GB),
    which the engine commits under the git-ignored build/plane; the step's
    ms beside phases 9 and 17 (a), the report's ms, the commit's seconds;
+   then ``TorchTrainer(datasets={"train": ds})`` with one ``use_gpu``
+   worker in the GPU daemon, ``ds`` 2 int32 blocks of phase 9's batch
+   shape (block 0 phase 9's batch) put by the driver and fetched by the
+   daemon, read through ``iter_device_batches`` (phase 20 (b)'s loop): 2
+   steps, every batch a CUDA DTensor equal to its block, step 0's loss
+   equal to phase 9's at ``TRAIN_RTOL``, its launches counted in the
+   daemon (into the kernels line);
    (b) ``serve.run`` of a ``num_gpus=1`` deployment in the GPU daemon from
    the dict form of (a)'s ``CheckpointRef``: f32 answers to phase 5's
    requests match a dense forward here on the same checkpoint at 1e-3;
@@ -202,7 +210,23 @@ Phases, each of which asserts:
    within 64 MiB of its value before (a), measured after 12 new threads'
    first matmuls (whose cuBLAS handles, which PyTorch pools for the life
    of the process, (a) and (b) would otherwise make) and printed with
-   what those took.
+   what those took;
+21. RL (``ray_tpu_torch.rl`` PPO, ``ray_tpu_torch.tune``): the fcnet
+   actor-critic (64, 64) on CartPole-v1 at ``tests/test_rl.py``'s PPO
+   gate config (8 envs x 100 steps, train batch 800, minibatch 256, 8
+   SGD passes), rollouts on the CPU: (1) one ``PPOLearner.sgd`` on the card
+   against the CPU learner, the same weights, batch and permutations, at
+   ``RL_RTOL``/``RL_ATOL``, the largest differences printed; (2)
+   ``build().train()`` for 25 iterations with the learner on the card,
+   passing the gate (final ``episode_reward_mean`` > max(80, 2 x first)),
+   env-steps/s, sample and learn ms an iteration, and the same with the
+   learner on the CPU beside them; (3) ``tune.run`` of a PPO subclass with
+   ``resources_per_trial={"cpu": 1, "gpu": 1}`` on ``init()``, 2
+   iterations, the trial's learner tensors on ``cuda:0``; (4) 2 remote
+   rollout workers (CPU actors) under ``init()``, 2 iterations; (5) the
+   card's free memory back within 64 MiB of its value before (1), and the
+   flash kernels' launch counters unmoved (no kernel of the repo is on
+   this path).
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -310,6 +334,7 @@ PROCESS_MEMORY_SLACK = 64 * 2**20
 PLANE_DIR = "build/plane"
 PLANE_BULK_ELEMS = 2 * 1024 * 1024
 PLANE_HEARTBEAT_TIMEOUT_MS = 10_000
+PLANE_DATASET_STEPS = 2   # phase 19 (a): steps fed by a dataset
 # Phase 20: the data plane. DATA_ROWS rows over DATA_BLOCKS blocks, read in
 # batches of DATA_BATCH; the first DATA_CHECKED f32 rows against dense.
 DATA_ROWS = 64
@@ -317,6 +342,10 @@ DATA_BLOCKS = 8
 DATA_BATCH = 8
 DATA_CHECKED = 16
 COPY_RUNS = 20
+# Phase 21: PPO at tests/test_rl.py:197-218's gate, learner on the card.
+RL_ITERS = 25
+RL_TUNE_ITERS = 2    # (3) the trial's and (4) the remote workers' iterations
+RL_RTOL, RL_ATOL = 1e-4, 1e-6   # (1) the card's learner against the CPU's
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -1595,10 +1624,10 @@ def bench_phase(timeout_s=BENCH_TIMEOUT_S):
     for value in (head["value"], head["mfu_pct"],
                   ex["resnet18_images_per_sec"],
                   ex["transformer_tokens_per_sec"],
-                  ex["transformer_mfu_pct"]):
+                  ex["transformer_mfu_pct"], ex["ppo_env_steps_per_sec"]):
         assert value is not None and value > 0, head
-    assert set(head["errors"]) == {"ppo"}, (head["errors"],
-                                           proc.stderr[-4000:])
+    assert head["errors"] is None, (head["errors"], proc.stderr[-4000:])
+    assert sections["section_ppo"]["learner_device"] == "cuda", sections
     return head, sections["section_transformer"]
 
 
@@ -2662,6 +2691,59 @@ def tensor_plane_phase(fa, device, card, phase9, phase17_ms, rates,
     return launches
 
 
+def plane_dataset_steps(rt, card, phase9, width, batch,
+                        steps=PLANE_DATASET_STEPS):
+    """Phase 19 (a), continued: ``TorchTrainer(datasets={"train": ds})``
+    with one ``use_gpu`` worker in the GPU daemon. ``ds`` holds ``steps``
+    int32 blocks of phase 9's batch shape (block 0 phase 9's batch),
+    put by this driver; the worker's ``DataIterator`` is pickled to the
+    daemon, which fetches the blocks over the object plane, and the loop
+    (phase 20 (b)'s) reads them through ``iter_device_batches``. Step 0's
+    loss equals phase 9's. Returns the launches counted in the daemon."""
+    import ray_tpu_torch.data  # noqa: F401
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.train import TorchTrainer
+
+    n = width["n_layers"]
+    per_step = (2 * n, n, n)
+    first = np.random.default_rng(SEED + 4).integers(
+        0, width["vocab_size"], size=batch)
+    rest = np.random.default_rng(SEED + 20).integers(
+        0, width["vocab_size"], size=((steps - 1) * batch[0], batch[1]))
+    blocks = np.split(np.concatenate([first, rest]).astype(np.int32), steps)
+    ds = rt.data.from_numpy(blocks)
+    trainer = TorchTrainer(
+        data_trainer_loop, train_loop_config=dict(
+            width=width, device="cuda", seed=SEED, batch=batch[0],
+            blocks=blocks),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        datasets={"train": ds}, results_timeout_s=TRAINER_TIMEOUT_S)
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    assert [m["step"] for m in hist] == list(range(steps)), hist
+    losses = [m["loss"] for m in hist]
+    assert all(np.isfinite(losses)), losses
+    np.testing.assert_allclose(losses[0], phase9["losses"][0],
+                               rtol=TRAIN_RTOL)
+    assert all(m["launches"] == per_step for m in hist), \
+        [m["launches"] for m in hist]
+    assert all(m["equal"] and m["shape"] == batch and m["dtensor"]
+               and m["device"] == "cuda" for m in hist), hist
+    log(f"[plane] (a) TorchTrainer(datasets={{'train': ds}}), 1 use_gpu "
+        f"worker in the GPU daemon: {steps} int32 blocks of {batch[0]} x "
+        f"{batch[1]} put by the driver and fetched by the daemon, read "
+        f"through iter_device_batches: every batch a CUDA DTensor equal to "
+        f"its block; losses {losses} (step 0 vs phase 9's "
+        f"{phase9['losses'][0]} at rtol {TRAIN_RTOL}); launches a step "
+        f"{per_step} counted in the daemon; steps in ms "
+        + ", ".join(f"{m['step_ms']:.1f}" for m in hist)
+        + f"; fit() {fit_s:.1f} s ({card})")
+    return tuple(steps * c for c in per_step)
+
+
 def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
                        phase9, phase17_ms, rates, root, width, batch, steps,
                        n_requests, procs):
@@ -2739,6 +2821,11 @@ def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
         f"{summary['enqueue_ms']:.1f} ms); the commit (hash, write, "
         f"manifest) {summary['save_ms'] / 1e3:.3f} s, waited "
         f"{summary['flush_s']:.3f} s after the last report")
+
+    # (a) continued: TorchTrainer(datasets=) with its worker in the GPU
+    # daemon, fed by a dataset whose blocks the daemon fetches
+    launches = tuple(a + b for a, b in zip(launches, plane_dataset_steps(
+        rt, card, phase9, width, batch)))
 
     # (b) serve.run from the CheckpointRef: a num_gpus=1 replica in the
     # GPU daemon
@@ -3227,6 +3314,247 @@ def data_plane_phase(fa, device, card, direct, phase9, phase17_ms):
     return (trained[0] + forward, trained[1], trained[2])
 
 
+# -- phase 21: the RL path (rl/ PPO, tune/) ----------------------------------
+
+
+def ppo_gate_config(device, **rollouts):
+    """``tests/test_rl.py:197-218``'s PPO on CartPole (8 envs x 100 steps,
+    train batch 800, minibatch 256, 8 SGD passes, lr 3e-4, entropy 0.01, no
+    KL, clip 0.2, seed 0), its learner on ``device``."""
+    from ray_tpu_torch.rl import PPO
+    kw = dict(num_rollout_workers=0, num_envs_per_worker=8,
+              rollout_fragment_length=100)
+    kw.update(rollouts)
+    return (PPO.get_default_config()
+            .environment("CartPole-v1")
+            .rollouts(**kw)
+            .training(train_batch_size=800, sgd_minibatch_size=256,
+                      num_sgd_iter=8, lr=3e-4, entropy_coeff=0.01,
+                      kl_coeff=0.0, clip_param=0.2)
+            .resources(device=str(device))
+            .debugging(seed=SEED))
+
+
+def rl_learner_parity(device):
+    """Phase 21 (1): one ``sgd`` call (8 epochs x 3 minibatches of 256) of
+    the learner on the card against the learner on the CPU: the same
+    weights, the same sample batch from a CPU rollout worker (standardized
+    advantages, cut to 768 rows) and the same permutations. Returns the
+    largest differences (parameters, metrics)."""
+    from ray_tpu_torch.rl import RolloutWorker
+    from ray_tpu_torch.rl import models as rl_models
+    from ray_tpu_torch.rl.postprocessing import standardize
+    from ray_tpu_torch.rl.ppo import PPOLearner
+    from ray_tpu_torch.rl.sample_batch import SampleBatch, batch_to_device
+
+    cfg = ppo_gate_config(device)
+    worker = RolloutWorker("CartPole-v1", num_envs=8,
+                           rollout_fragment_length=100, seed=SEED,
+                           device="cpu")
+    batch = worker.sample()
+    batch[SampleBatch.ADVANTAGES] = standardize(
+        batch[SampleBatch.ADVANTAGES])
+    n = len(batch) // cfg.sgd_minibatch_size * cfg.sgd_minibatch_size
+    batch = batch.slice(0, n)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    perms = [torch.randperm(n, generator=gen)
+             for _ in range(cfg.num_sgd_iter)]
+    weights = worker.get_weights()
+    out = {}
+    for dev in (torch.device("cpu"), device):
+        learner = PPOLearner(weights, cfg, False, device=dev)
+        metrics = learner.sgd(batch_to_device(batch, dev), 0.2,
+                              [p.to(dev) for p in perms])
+        out[dev.type] = (learner.get_weights(), metrics)
+    (pc, mc), (pg, mg) = out["cpu"], out[device.type]
+    for a, b in zip(rl_models.tree_leaves(pg), rl_models.tree_leaves(pc)):
+        np.testing.assert_allclose(a, b, rtol=RL_RTOL, atol=RL_ATOL)
+    for k in mc:
+        np.testing.assert_allclose(mg[k], mc[k], rtol=RL_RTOL, atol=RL_ATOL)
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(
+        rl_models.tree_leaves(pc), rl_models.tree_leaves(weights)))
+    return (max(float(np.abs(a - b).max()) for a, b in zip(
+                rl_models.tree_leaves(pg), rl_models.tree_leaves(pc))),
+            max(abs(mg[k] - mc[k]) for k in mc), moved, n)
+
+
+def rl_learn(device, iters=RL_ITERS):
+    """Phase 21 (2): ``build().train()`` of the gate's PPO, ``iters``
+    iterations, the learner on ``device``. Each iteration's sampling and
+    learning are timed on the host clock (the learner reads its metrics
+    back, so its device work ends inside). Returns the first and final
+    ``episode_reward_mean`` and the times."""
+    algo = ppo_gate_config(device).build()
+    assert algo.learner.device.type == device.type, algo.learner.device
+    sample_ms, learn_ms = [], []
+
+    def timed(fn, into):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    algo.workers.local_worker.sample = timed(algo.workers.local_worker.sample,
+                                             sample_ms)
+    algo.learner.train = timed(algo.learner.train, learn_ms)
+    first = result = None
+    iter_s, steps = [], []
+    try:
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            result = algo.train()
+            iter_s.append(time.perf_counter() - t0)
+            steps.append(result["timesteps_this_iter"])
+            if first is None and "episode_reward_mean" in result:
+                first = result["episode_reward_mean"]
+    finally:
+        algo.stop()
+        shutil.rmtree(algo.logdir, ignore_errors=True)
+    # the first iteration carries the learner's warm-up; the rate leaves it
+    return {"first": first, "final": result["episode_reward_mean"],
+            "steps_per_s": sum(steps[1:]) / sum(iter_s[1:]),
+            "sample_ms": statistics.median(sample_ms[1:]),
+            "learn_ms": statistics.median(learn_ms[1:]),
+            "first_learn_ms": learn_ms[0],
+            "timesteps": sum(steps)}
+
+
+def _tunable_ppo(device):
+    """The PPO subclass phase 21 (3) hands ``tune.run``: the gate's config
+    with ``lr`` from the trial's config, reporting where its learner's
+    tensors live and what the trial actor was granted."""
+    from ray_tpu_torch.rl import PPO
+
+    class TunablePPO(PPO):
+        def __init__(self, config=None, logdir=None):
+            cfg = ppo_gate_config(device).training(
+                lr=(config or {}).get("lr", 3e-4))
+            super().__init__(config=cfg, logdir=logdir)
+
+        def step(self):
+            import ray_tpu_torch
+            from ray_tpu_torch.rl import models as rl_models
+            result = super().step()
+            result["learner_devices"] = sorted({
+                str(t.device)
+                for t in rl_models.tree_leaves(self.learner.params)})
+            result["granted"] = [str(d) for d in ray_tpu_torch
+                                 .get_runtime_context().get_gpu_devices()]
+            return result
+
+    return TunablePPO
+
+
+def rl_phase(fa, device, card):
+    """Phase 21: the RL path on the card. Returns nothing: no flash kernel
+    runs, and the launch counters must not move."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+
+    # the trial actor's thread runs matmuls on the card: take its cuBLAS
+    # handles from the pool first, so that (5) sees what the phase leaves
+    matmul_threads(4, device)
+    free_device_caches()
+    free_before = torch.cuda.mem_get_info(device)[0]
+    counts = launch_counts(fa)
+    t_phase = time.perf_counter()
+
+    # (1) the learner on the card against the learner on the CPU
+    t0 = time.perf_counter()
+    p_err, m_err, moved, n = rl_learner_parity(device)
+    log(f"[rl] (1) PPOLearner.sgd on {device} against the CPU, the same "
+        f"weights, {n} rows and 8 permutations (24 minibatch steps, TF32 "
+        f"off): largest parameter difference {p_err:.3e} (the parameters "
+        f"moved up to {moved:.3e}), largest metric difference {m_err:.3e}, "
+        f"at rtol {RL_RTOL}, atol {RL_ATOL}; {time.perf_counter() - t0:.1f} "
+        f"s")
+
+    # (2) PPO on CartPole at the gate's config, learner on the card, then on
+    # the CPU for comparison
+    t0 = time.perf_counter()
+    g, c = rl_learn(device), rl_learn(torch.device("cpu"))
+    for r in (g, c):
+        assert r["final"] > max(80.0, 2.0 * r["first"]), r
+    log(f"[rl] (2) PPO on CartPole-v1, {RL_ITERS} iterations of 800 env "
+        f"steps (8 envs x 100; 768 learned a pass, 8 passes of 3 "
+        f"minibatches): learner on the card episode_reward_mean "
+        f"{g['first']:.2f} -> {g['final']:.2f}, on the CPU {c['first']:.2f}"
+        f" -> {c['final']:.2f}; the gate final > max(80, 2 x first) holds "
+        f"for both; {time.perf_counter() - t0:.1f} s")
+    log(f"[times] {card}: PPO CartPole env-steps/s, learner on the card "
+        f"{g['steps_per_s']:.1f} (sample {g['sample_ms']:.2f} ms, learn "
+        f"{g['learn_ms']:.2f} ms an iteration, medians of {RL_ITERS - 1}; "
+        f"the first learn {g['first_learn_ms']:.1f} ms), learner on the CPU"
+        f" {c['steps_per_s']:.1f} (sample {c['sample_ms']:.2f} ms, learn "
+        f"{c['learn_ms']:.2f} ms); rates over iterations 2-{RL_ITERS}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rl_")
+    rt.init(num_cpus=8)
+    try:
+        # (3) tune.run of a PPO subclass: one trial actor holding the card
+        assert rt.cluster_resources().get("GPU") == 1.0
+        t0 = time.perf_counter()
+        analysis = tune.run(_tunable_ppo(device), config={"lr": 3e-4},
+                            resources_per_trial={"cpu": 1, "gpu": 1},
+                            stop={"training_iteration": RL_TUNE_ITERS},
+                            metric="episode_reward_mean", mode="max",
+                            local_dir=tmp, verbose=0)
+        trial = analysis.trials[0]
+        assert trial.status == "TERMINATED", (trial.status, trial.error)
+        assert len(trial.results) == RL_TUNE_ITERS, trial.results
+        on = "cuda:0" if device.type == "cuda" else str(device)
+        assert all(r["learner_devices"] == [on]
+                   and r["granted"] == ["cuda:0"] for r in trial.results), \
+            trial.results
+        assert rt.available_resources().get("GPU") == 1.0
+        log(f"[rl] (3) tune.run(TunablePPO, resources_per_trial={{'cpu': 1, "
+            f"'gpu': 1}}): {RL_TUNE_ITERS} iterations in the trial actor, "
+            f"granted {trial.results[-1]['granted']}, learner tensors on "
+            f"{trial.results[-1]['learner_devices']}; the GPU free again "
+            f"after the trial; {time.perf_counter() - t0:.1f} s")
+
+        # (4) two remote rollout workers (CPU actors) under init()
+        t0 = time.perf_counter()
+        algo = ppo_gate_config(device, num_rollout_workers=2).build()
+        try:
+            results = [algo.train() for _ in range(RL_TUNE_ITERS)]
+            where = rt.get([w.apply.remote(lambda w: str(w.policy.device))
+                            for w in algo.workers.remote_workers],
+                           timeout=60)
+        finally:
+            algo.stop()
+            shutil.rmtree(algo.logdir, ignore_errors=True)
+        assert where == ["cpu", "cpu"], where
+        assert all(r["timesteps_this_iter"] >= 768 for r in results), results
+        log(f"[rl] (4) PPO with 2 remote rollout workers (policies on "
+            f"{where}), learner on the card: {RL_TUNE_ITERS} iterations, "
+            f"timesteps {[r['timesteps_this_iter'] for r in results]}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (5) the card's memory is back, and no flash kernel ran
+    assert launch_counts(fa) == counts, (launch_counts(fa), counts)
+    free_after = None
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline:
+        free_device_caches()
+        free_after = torch.cuda.mem_get_info(device)[0]
+        if free_before - free_after <= PROCESS_MEMORY_SLACK:
+            break
+        time.sleep(0.2)
+    assert free_before - free_after <= PROCESS_MEMORY_SLACK, (
+        free_before, free_after)
+    log(f"[rl] (5) the card's free memory {free_before} bytes before (1), "
+        f"{free_after} after; the flash launch counters did not move; phase"
+        f" 21 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3421,6 +3749,11 @@ def main() -> int:
         fa, device, card, (N_REQUESTS / seconds, served["n_tokens"] / seconds),
         trained, trainer_ms)
     log(f"[data] phase 20 in {time.perf_counter() - t0:.1f} s")
+
+    # 21. the RL path: PPO's learner on the card, directly, through tune.run
+    # and fed by remote rollout workers (no flash kernel runs)
+    free_device_caches()
+    rl_phase(fa, device, card)
 
     fwd_launches, dq_launches, dkv_launches = (
         a + b + c + d for a, b, c, d in zip(trained["launches"],

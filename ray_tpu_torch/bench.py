@@ -11,7 +11,11 @@ as soon as the section ends, then one headline line with the same keys
 ``backend_available``, ``probe_failed``, ``errors``, ``extras``), and exit 0
 whatever failed. Sections:
 
-- ``ppo``: records that ``rl/`` is not ported yet; its rate is null;
+- ``ppo``: PPO on CartPole at ``bench.py``'s schedule (8 envs x 100
+  steps, train batch 800, minibatch 256, 8 SGD passes, lr 3e-4, seed 0):
+  rollouts on the CPU, the learner on the card, in a subprocess as
+  ``bench.py`` runs it; one warm-up iteration, then 3 timed ones, whose
+  env-steps/s fill ``extras.ppo_env_steps_per_sec``;
 - ``resnet50``: batch 128 x 224 x 224 x 3, bf16, SGD(0.1, momentum 0.9) on
   one seeded batch of images and labels;
 - ``transformer``: the flagship decoder at ``bench.py``'s width (d_model
@@ -39,7 +43,10 @@ from __future__ import annotations
 
 import importlib
 import json
+import pathlib
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 import traceback
@@ -64,7 +71,13 @@ FORWARD_FLOPS_PER_IMAGE = {"resnet50": 4.09e9, "resnet18": 1.82e9}
 # Dense bf16 peak FLOP/s by torch.cuda.get_device_name(): NVIDIA's H100
 # SXM data sheet (at its 700 W limit).
 PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
-PPO_ERROR = "rl/ is not ported yet (ROADMAP Queue 1: rl/)"
+# PPO at bench.py:188-195's schedule; 1 warm-up iteration, then 3 timed.
+PPO_CONFIG = dict(num_envs_per_worker=8, rollout_fragment_length=100,
+                  train_batch_size=800, sgd_minibatch_size=256,
+                  num_sgd_iter=8, lr=3e-4)
+PPO_TIMED_ITERS = 3
+PPO_TIMEOUT_S = 600
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def peak_bf16_flops(device_name: str) -> Optional[float]:
@@ -186,9 +199,63 @@ def bench_transformer(*, batch: int = 8, seq: int = 1024,
             "launches": {k: after[k] - before[k] for k in after}}
 
 
-def bench_ppo():
-    """PPO's env-steps/s needs ``rl/``, which the port does not have yet."""
-    raise NotImplementedError(PPO_ERROR)
+def ppo_env_steps(device: DeviceLike = None, *,
+                  timed_iters: int = PPO_TIMED_ITERS) -> Dict[str, object]:
+    """PPO's env-steps/s in this process: ``PPO_CONFIG`` on CartPole-v1,
+    the learner on ``device``, one warm-up iteration (``algo.step()``, as
+    ``bench.py``), then ``timed_iters`` timed ones on the host clock. The
+    learner reads its metrics back to the host every iteration, so each
+    timed iteration ends with its device work."""
+    from ray_tpu_torch.rl import PPO
+    device = resolve_device(device)
+    c = PPO_CONFIG
+    algo = (PPO.get_default_config()
+            .environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0,
+                      num_envs_per_worker=c["num_envs_per_worker"],
+                      rollout_fragment_length=c["rollout_fragment_length"])
+            .training(train_batch_size=c["train_batch_size"],
+                      sgd_minibatch_size=c["sgd_minibatch_size"],
+                      num_sgd_iter=c["num_sgd_iter"], lr=c["lr"])
+            .resources(device=str(device))
+            .debugging(seed=0)
+            .build())
+    try:
+        t0 = time.perf_counter()
+        algo.step()
+        warmup_s = time.perf_counter() - t0
+        steps = 0
+        t0 = time.perf_counter()
+        for _ in range(timed_iters):
+            steps += algo.step().get("timesteps_this_iter", 0)
+        seconds = time.perf_counter() - t0
+    finally:
+        algo.stop()
+        shutil.rmtree(algo.logdir, ignore_errors=True)
+    return {"env_steps_per_sec": steps / seconds, "env_steps": steps,
+            "seconds": seconds, "warmup_s": warmup_s,
+            "learner_device": str(algo.learner.device)}
+
+
+def bench_ppo(device: DeviceLike = None, *,
+              timed_iters: int = PPO_TIMED_ITERS,
+              timeout_s: float = PPO_TIMEOUT_S) -> Dict[str, object]:
+    """``ppo_env_steps`` in a subprocess (``bench.py`` runs its PPO section
+    in one): the card's context and the learner's allocations end with it.
+    """
+    device = resolve_device(device)
+    code = ("import json, sys\n"
+            "from ray_tpu_torch.bench import ppo_env_steps\n"
+            "out = ppo_env_steps(sys.argv[1], timed_iters=int(sys.argv[2]))\n"
+            "print('PPO_RESULT', json.dumps(out), flush=True)\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(device), str(timed_iters)],
+        cwd=REPO, capture_output=True, text=True, timeout=timeout_s)
+    for line in proc.stdout.splitlines():
+        if line.startswith("PPO_RESULT "):
+            return json.loads(line[len("PPO_RESULT "):])
+    raise RuntimeError(f"ppo bench failed (exit {proc.returncode}): "
+                       f"{proc.stderr[-600:]}")
 
 
 def _emit(obj) -> None:
@@ -214,7 +281,7 @@ def _section(name: str, fn: Callable[[], dict], errors: dict):
 
 
 def headline(r50=None, lm=None, r18=None, kind="", peak=None,
-             backend_ok=False, errors=None) -> dict:
+             backend_ok=False, errors=None, ppo=None) -> dict:
     """The final line, with exactly ``bench.py``'s keys."""
     def mfu(section):
         if peak is None or section is None:
@@ -243,17 +310,16 @@ def headline(r50=None, lm=None, r18=None, kind="", peak=None,
             "transformer_mfu_pct": mfu(lm),
             "transformer_params_m": (None if lm is None else
                                      round(lm["params"] / 1e6, 1)),
-            "ppo_env_steps_per_sec": None,    # bench_ppo: not ported yet
+            "ppo_env_steps_per_sec": rounded(ppo, "env_steps_per_sec"),
         },
     }
 
 
 def main() -> None:
     errors: dict = {}
-    _section("ppo", bench_ppo, errors)
     backend_ok = torch.cuda.is_available()
     kind, peak = "", None
-    r50 = lm = r18 = None
+    r50 = lm = r18 = ppo = None
     if not backend_ok:
         _emit({"metric": "backend_probe_failed", "unit": "error",
                "value": "torch.cuda.is_available() is false"})
@@ -261,12 +327,13 @@ def main() -> None:
         torch.backends.cudnn.benchmark = True  # XLA autotunes its convs too
         kind = torch.cuda.get_device_name(0)
         peak = peak_bf16_flops(kind)
+        ppo = _section("ppo", bench_ppo, errors)
         r50 = _section("resnet50",
                        lambda: bench_resnet("resnet50", batch=128), errors)
         lm = _section("transformer", bench_transformer, errors)
         r18 = _section("resnet18",
                        lambda: bench_resnet("resnet18", batch=256), errors)
-    _emit(headline(r50, lm, r18, kind, peak, backend_ok, errors))
+    _emit(headline(r50, lm, r18, kind, peak, backend_ok, errors, ppo))
 
 
 if __name__ == "__main__":

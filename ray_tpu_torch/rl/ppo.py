@@ -1,0 +1,242 @@
+"""Proximal Policy Optimization.
+
+Port of ``ray_tpu/rl/ppo.py``. Parity with ``rllib/algorithms/ppo/ppo.py``
+(training_step :400-470: synchronous sampling -> advantage standardization
+-> minibatch SGD -> weight sync -> adaptive KL update) and
+``ppo_torch_policy.py`` (clipped surrogate + clipped value loss + entropy
+bonus + KL penalty).
+
+The learner holds its parameters and Adam state on one device. Where the
+JAX package compiles the whole ``num_sgd_iter`` x minibatch schedule into
+one XLA program (``lax.scan`` over epochs and minibatches), here the same
+schedule is a loop of eager minibatch steps, entered with one host->device
+copy per column of the sample batch and left with one device->host read
+of the metrics. Each epoch's permutation comes from a ``torch.Generator``
+on the learner's device, seeded ``seed + 7919`` as the JAX key is. The
+optimizer is ``optax.chain(clip_by_global_norm(grad_clip), adam(lr))``
+written on the tree with optax's arithmetic (``clip_adam_step_``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ray_tpu_torch import resolve_device
+from ray_tpu_torch.rl import models as _models
+from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rl.postprocessing import standardize
+from ray_tpu_torch.rl.rollout_worker import synchronous_parallel_sample
+from ray_tpu_torch.rl.sample_batch import SampleBatch, batch_to_device
+
+AUX_KEYS = ("policy_loss", "vf_loss", "entropy", "kl")
+_USED = (SampleBatch.OBS, SampleBatch.ACTIONS, SampleBatch.ACTION_LOGP,
+         SampleBatch.ADVANTAGES, SampleBatch.VALUE_TARGETS)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+class PPOConfig(AlgorithmConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or PPO)
+        self.lr = 5e-5
+        self.train_batch_size = 4000
+        self.sgd_minibatch_size = 128
+        self.num_sgd_iter = 30
+        self.clip_param = 0.3
+        self.vf_clip_param = 10.0
+        self.vf_loss_coeff = 1.0
+        self.entropy_coeff = 0.0
+        self.kl_coeff = 0.2
+        self.kl_target = 0.01
+        self.lambda_ = 0.95
+        self.grad_clip = 0.5
+
+
+def adam_init(params: Any) -> Dict[str, Any]:
+    """optax.adam's state on the tree: the step count and two moments."""
+    return {"count": 0,
+            "mu": _models.tree_map(torch.zeros_like, params),
+            "nu": _models.tree_map(torch.zeros_like, params)}
+
+
+@torch.no_grad()
+def clip_adam_step_(leaves: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor], opt_state: Dict[str, Any],
+                    max_norm: float, lr: float) -> None:
+    """One ``optax.chain(clip_by_global_norm(max_norm), adam(lr))`` update,
+    in place on ``leaves`` and ``opt_state``.
+
+    The clip keeps the gradient while its global norm is below
+    ``max_norm`` and otherwise scales it by ``max_norm / norm`` (not
+    ``clip_grad_norm_``'s ``norm + 1e-6``). Adam: b1 0.9, b2 0.999, eps
+    1e-8, eps_root 0, bias correction computed in float32 as optax does.
+    """
+    grads = list(grads)
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    grads = torch._foreach_mul(grads, scale)   # the caller's stay as given
+    mu = _models.tree_leaves(opt_state["mu"])
+    nu = _models.tree_leaves(opt_state["nu"])
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, grads, alpha=1 - ADAM_B1)
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - ADAM_B2)
+    count = opt_state["count"] + 1
+    opt_state["count"] = count
+    one, c = np.float32(1), np.float32(count)
+    bc1 = float(one - np.float32(ADAM_B1) ** c)
+    bc2 = float(one - np.float32(ADAM_B2) ** c)
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, ADAM_EPS)
+    update = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(update, denom)
+    torch._foreach_add_(list(leaves), update, alpha=-lr)
+
+
+class PPOLearner:
+    """The PPO update on one device. Holds (params, opt_state) there."""
+
+    def __init__(self, init_params, cfg: PPOConfig, continuous: bool,
+                 mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a PPO learner over a mesh is not ported yet (ROADMAP Queue "
+                "1: rl/, the mesh learner and DD-PPO)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._continuous = continuous
+        self.set_state((init_params, None))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 7919)
+
+    def _loss(self, kl_coeff, batch):
+        dist_in, values = _models.actor_critic_apply(
+            self.params, batch[SampleBatch.OBS])
+        dist = _models.make_distribution(self.params, dist_in,
+                                         self._continuous)
+        return _models.ppo_surrogate_loss(dist, values, batch, self.cfg,
+                                          kl_coeff)
+
+    def sgd(self, batch: Dict[str, torch.Tensor], kl_coeff: float,
+            perms: Sequence[torch.Tensor]) -> Dict[str, float]:
+        """The whole schedule on a batch already on the device: for each
+        permutation (one an epoch), the minibatches of ``x[perm][:num_mb *
+        mb]`` in order (the remainder is dropped), each one clip+Adam step.
+        The metrics are the mean over every minibatch of every epoch, and
+        ``kl`` the mean of the last epoch's (``lax.scan``'s outputs in the
+        JAX package)."""
+        mb = self.cfg.sgd_minibatch_size
+        n = batch[SampleBatch.OBS].shape[0]
+        num_mb = max(1, n // mb)
+        leaves = _models.tree_leaves(self.params)
+        auxs: List[torch.Tensor] = []
+        for perm in perms:
+            shuffled = {k: v[perm][:num_mb * mb] for k, v in batch.items()}
+            for i in range(num_mb):
+                minibatch = {k: v[i * mb:(i + 1) * mb]
+                             for k, v in shuffled.items()}
+                loss, aux = self._loss(kl_coeff, minibatch)
+                grads = torch.autograd.grad(loss, leaves)
+                clip_adam_step_(leaves, grads, self.opt_state,
+                                self.cfg.grad_clip, self.cfg.lr)
+                auxs.append(torch.stack([aux[k].detach() for k in AUX_KEYS]))
+        stacked = torch.stack(auxs).view(len(perms), num_mb, len(AUX_KEYS))
+        last_kl = stacked[-1, :, AUX_KEYS.index("kl")].mean()
+        values = torch.cat([stacked.mean(dim=(0, 1)), last_kl[None]]).tolist()
+        metrics = dict(zip(AUX_KEYS, values[:-1]))
+        metrics["kl"] = values[-1]
+        return metrics
+
+    def train(self, batch: SampleBatch, kl_coeff: float) -> Dict[str, float]:
+        used = SampleBatch({k: v for k, v in batch.items() if k in _USED})
+        arrays = batch_to_device(used, self.device)
+        n = arrays[SampleBatch.OBS].shape[0]
+        perms = [torch.randperm(n, generator=self.generator,
+                                device=self.device)
+                 for _ in range(self.cfg.num_sgd_iter)]
+        return self.sgd(arrays, kl_coeff, perms)
+
+    def get_weights(self):
+        """The parameters as a host numpy tree."""
+        return _models.to_numpy(self.params)
+
+    def state(self):
+        opt = self.opt_state
+        return (self.get_weights(),
+                {"count": opt["count"], "mu": _models.to_numpy(opt["mu"]),
+                 "nu": _models.to_numpy(opt["nu"])})
+
+    def set_state(self, state):
+        params, opt_state = state
+        self.params = _models.params_from_numpy(params, self.device)
+        for t in _models.tree_leaves(self.params):
+            t.requires_grad_(True)
+        if opt_state is None:
+            self.opt_state = adam_init(self.params)
+        else:
+            self.opt_state = {
+                "count": int(opt_state["count"]),
+                "mu": _models.params_from_numpy(opt_state["mu"], self.device),
+                "nu": _models.params_from_numpy(opt_state["nu"], self.device)}
+
+
+class PPO(Algorithm):
+    _config_cls = PPOConfig
+
+    @classmethod
+    def get_default_config(cls) -> PPOConfig:
+        return PPOConfig(cls)
+
+    def _make_learner(self) -> PPOLearner:
+        cfg = self.algo_config
+        lw = self.workers.local_worker
+        self.kl_coeff = cfg.kl_coeff
+        from ray_tpu_torch.rl.recurrent import uses_memory_model
+        if uses_memory_model(cfg.model):
+            raise NotImplementedError(
+                "use_lstm / use_attention need rl/recurrent.py's "
+                "RecurrentPPOLearner, which is not ported yet (ROADMAP "
+                "Queue 1: rl/)")
+        return PPOLearner(lw.get_weights(), cfg, lw.policy.continuous,
+                          mesh=cfg.mesh, device=self.device)
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.algo_config
+        self.workers.sync_weights()
+        batch = synchronous_parallel_sample(
+            self.workers, max_env_steps=cfg.train_batch_size)
+        self._timesteps_total += len(batch)
+        # Batch-level advantage standardization (ppo.py:415).
+        batch[SampleBatch.ADVANTAGES] = standardize(
+            batch[SampleBatch.ADVANTAGES])
+        # Slice (or pad) to a multiple of the minibatch, as the JAX package
+        # does for its one compiled shape.
+        n = (len(batch) // cfg.sgd_minibatch_size) * cfg.sgd_minibatch_size
+        if n == 0:
+            batch = batch.pad_to(cfg.sgd_minibatch_size)
+        else:
+            batch = batch.slice(0, n)
+        metrics = self.learner.train(batch, self.kl_coeff)
+        # Adaptive KL coefficient (ppo.py:433-437).
+        kl = metrics["kl"]
+        if kl > 2.0 * cfg.kl_target:
+            self.kl_coeff *= 1.5
+        elif kl < 0.5 * cfg.kl_target:
+            self.kl_coeff *= 0.5
+        self.workers.local_worker.set_weights(self.learner.get_weights())
+        metrics.update(timesteps_this_iter=len(batch),
+                       kl_coeff=self.kl_coeff,
+                       learner_params=_models.num_params(self.learner.params))
+        return metrics
+
+    def _learner_state(self):
+        return {"learner": self.learner.state(), "kl_coeff": self.kl_coeff}
+
+    def _set_learner_state(self, state):
+        if state:
+            self.learner.set_state(state["learner"])
+            self.kl_coeff = state["kl_coeff"]

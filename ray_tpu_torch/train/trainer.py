@@ -69,6 +69,14 @@ class TorchTrainer:
         for name, ds in self._datasets.items():
             for i, it in enumerate(ds.streaming_split(n, equal=True)):
                 shard_sets[i][name] = it
+        # The split's tasks (row counts, block slices) finish before the
+        # workers take their resources: one still queued on a daemon that
+        # the workers then fill would wait there for workers that wait for
+        # it (ROADMAP Queue 3, fixed 14).
+        refs = [r for shards in shard_sets for it in shards.values()
+                for r in it._ds._execute()]
+        if refs:
+            ray_tpu_torch.wait(refs, num_returns=len(refs))
         return shard_sets
 
     def fit(self) -> Result:
@@ -93,10 +101,13 @@ class TorchTrainer:
                 self._collective_backend,
                 results_timeout_s=self._results_timeout_s)
             try:
+                # Split the datasets before the workers take their
+                # resources (the JAX package splits after start()).
+                shards = self._dataset_shards()
                 executor.start()
                 executor.start_training(self._train_loop, self._config,
                                         checkpoint,
-                                        dataset_shards=self._dataset_shards(),
+                                        dataset_shards=shards,
                                         checkpoint_spec=self._checkpoint_spec(
                                             engine_root, checkpoint))
                 if restart_t0 is not None:

@@ -77,12 +77,14 @@ def test_sections_refuse_cuda_without_a_card(monkeypatch):
         bench.bench_resnet("resnet18", batch=2)
     with pytest.raises(RuntimeError, match="cuda"):
         bench.bench_transformer()
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.bench_ppo()
 
 
 def test_bench_without_a_card_prints_the_headline():
-    """Run as a user runs it: exit 0, a progress line for ``ppo``, and a
-    last line with exactly bench.py's keys that says the card is missing.
-    No section runs on the CPU."""
+    """Run as a user runs it: exit 0 and a last line with exactly bench.py's
+    keys that says the card is missing. No section runs on the CPU, ``ppo``
+    included: its learner is on the card."""
     proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.bench"],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=120)
@@ -95,9 +97,9 @@ def test_bench_without_a_card_prints_the_headline():
     assert head["value"] is None and head["mfu_pct"] is None
     assert head["backend_available"] is False and head["probe_failed"] is True
     assert all(v is None for v in head["extras"].values())
-    assert head["errors"] == {"ppo": f"NotImplementedError: {bench.PPO_ERROR}"}
+    assert head["errors"] is None
     sections = [d["metric"] for d in lines if d.get("unit") == "progress"]
-    assert sections == ["section_ppo"]
+    assert sections == []
 
 
 def test_headline_figures():
@@ -105,8 +107,9 @@ def test_headline_figures():
     lm = {"tokens_per_sec": 80000.0, "flops_per_sec": 1.3e14,
           "params": 266_900_000}
     r18 = {"images_per_sec": 6000.0}
+    ppo = {"env_steps_per_sec": 1234.567}
     head = bench.headline(r50, lm, r18, "NVIDIA H100 80GB HBM3", 989e12,
-                          True, {"ppo": "x"})
+                          True, {"x": "y"}, ppo)
     assert set(head) == HEADLINE_KEYS
     assert head["value"] == 2000.0
     assert head["vs_baseline"] == round(2000.0 / (746.29 / 16), 2)
@@ -115,4 +118,5 @@ def test_headline_figures():
     assert head["extras"]["transformer_params_m"] == 266.9
     assert head["extras"]["transformer_mfu_pct"] == round(
         100 * 1.3e14 / 989e12, 2)
+    assert head["extras"]["ppo_env_steps_per_sec"] == 1234.57
     assert head["probe_failed"] is False

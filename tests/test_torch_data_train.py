@@ -386,3 +386,38 @@ def test_lm_steps_fed_from_a_dataset_shard_match_jax(np_params):
     got = [(m["loss"], m["grad_norm"]) for m in hist]
     assert len(got) == len(want) == 3
     np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-4)
+
+
+@pytest.mark.parametrize("pkg", (ray_tpu, ray_tpu_torch),
+                         ids=lambda p: p.__name__)
+def test_datasets_are_split_before_the_workers_take_their_resources(
+        pkg, monkeypatch):
+    """The port splits ``datasets=`` before ``executor.start()``, the JAX
+    package after (ROADMAP Queue 3, fixed 14). After, the split's tasks can
+    be pushed on a stale cluster view to a daemon the workers fill, and
+    wait there for workers that wait for the split: seen on a three-daemon
+    cluster with two two-CPU workers
+    (``test_torch_tensor_plane.py::test_flagship_trains_from_a_dataset_across_daemons``
+    after the dp test)."""
+    order = []
+    executor_cls = sub(pkg, "train.backend_executor").BackendExecutor
+    dataset_cls = sub(pkg, "data.dataset").Dataset
+    real_start, real_split = executor_cls.start, dataset_cls.streaming_split
+
+    def start(self):
+        order.append("start")
+        return real_start(self)
+
+    def split(self, n, **kw):
+        order.append("split")
+        return real_split(self, n, **kw)
+
+    monkeypatch.setattr(executor_cls, "start", start)
+    monkeypatch.setattr(dataset_cls, "streaming_split", split)
+    result = fit(pkg, shard_loop(pkg),
+                 lambda p: {"train": p.data.from_items(
+                     [{"x": float(i)} for i in range(8)])}, 2)
+    assert result.error is None, result.error
+    assert sum(m["rows"] for m in result.metrics_history) == 8
+    want = ["split", "start"] if pkg is ray_tpu_torch else ["start", "split"]
+    assert order == want

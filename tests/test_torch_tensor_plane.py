@@ -27,6 +27,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec
 
 import ray_tpu_torch as rt
+import ray_tpu_torch.data  # noqa: F401
 from ray_tpu.models import transformer as jax_transformer
 from ray_tpu.parallel import MeshConfig, build_mesh
 from ray_tpu.train.step import make_lm_train_step as jax_make_lm_train_step
@@ -497,11 +498,12 @@ def _jax_trajectory(params, tokens):
     return out
 
 
-def test_flagship_trains_across_daemons_like_one_jax_device(cluster):
-    """Two ranks in two daemons, each on half the batch, follow the JAX
-    package's one-device trajectory on the whole batch, step by step at
-    tests/test_torch_train.py's tolerance. The port runs its flash path
-    (the kernels' plain versions on the CPU), JAX its dense attention."""
+@pytest.fixture(scope="module")
+def lm_case():
+    """The flagship's seeded weights and batch, and the JAX package's
+    one-device trajectory on them, computed once for the module in a
+    thread that runs while the first test that needs it trains:
+    ``(params, tokens, want)``, ``want()`` joining the thread."""
     params = _lm_weights()
     tokens = np.random.default_rng(0).integers(
         0, TINY["vocab_size"], size=LM_BATCH, dtype=np.int32)
@@ -509,11 +511,25 @@ def test_flagship_trains_across_daemons_like_one_jax_device(cluster):
     jax_thread = threading.Thread(
         target=lambda: out.update(want=_jax_trajectory(params, tokens)))
     jax_thread.start()
+
+    def want():
+        jax_thread.join(120)
+        return out["want"]
+
+    return params, tokens, want
+
+
+def test_flagship_trains_across_daemons_like_one_jax_device(cluster,
+                                                            lm_case):
+    """Two ranks in two daemons, each on half the batch, follow the JAX
+    package's one-device trajectory on the whole batch, step by step at
+    tests/test_torch_train.py's tolerance. The port runs its flash path
+    (the kernels' plain versions on the CPU), JAX its dense attention."""
+    params, tokens, want = lm_case
     res = TorchTrainer(
         _make_lm_loop(), scaling_config=_spread(),
         train_loop_config={"width": TINY, "params": params,
                            "tokens": tokens, "steps": LM_STEPS}).fit()
-    jax_thread.join(120)
     assert res.error is None, res.error
     rows = {r: [m for m in res.metrics_history if m["rank"] == r]
             for r in (0, 1)}
@@ -521,9 +537,79 @@ def test_flagship_trains_across_daemons_like_one_jax_device(cluster):
     assert all(m["global_batch"] == LM_BATCH for m in res.metrics_history)
     got = [(m["loss"], m["grad_norm"]) for m in rows[0]]
     assert got == [(m["loss"], m["grad_norm"]) for m in rows[1]]
-    np.testing.assert_allclose(np.array(got), np.array(out["want"]),
+    np.testing.assert_allclose(np.array(got), np.array(want()),
                                rtol=1e-4)
     assert got[-1][0] < got[0][0]
+
+
+def _make_lm_data_loop():
+    """The flagship's sharded step on the session mesh, each step on the
+    next batch of this rank's dataset shard, read through
+    ``iter_device_batches`` and contributed as this rank's part of the
+    global batch (``session.shard_batch``). ``iter_device_batches(
+    sharding=)`` would not do here: like the JAX package's
+    ``iter_jax_batches(sharding=)`` it takes each batch for the global
+    one, which every rank holds whole, and keeps this rank's slice."""
+
+    def _lm_data_loop(config):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.models import transformer
+        from ray_tpu_torch.models.transformer import TransformerConfig
+        from ray_tpu_torch.train import make_lm_train_step, session
+
+        cfg = TransformerConfig(**config["width"], dtype=torch.float32,
+                                use_flash=True)
+        mesh = session.get_mesh()
+        init_fn, step_fn, _ = make_lm_train_step(cfg, mesh, device="cpu")
+        state = init_fn(params=transformer.params_from_numpy(
+            config["params"], cfg, "cpu"))
+        rank = session.get_world_rank()
+        batches = session.get_dataset_shard("train").iter_device_batches(
+            batch_size=config["rows"], drop_last=True, device="cpu",
+            prefetch_batches=1)
+        for step, batch in enumerate(batches):
+            tokens = session.shard_batch(batch["value"])
+            state, m = step_fn(state, tokens)
+            session.report({"step": step, "rank": rank, "pid": os.getpid(),
+                            "loss": m["loss"].item(),
+                            "grad_norm": m["grad_norm"].item(),
+                            "global_batch": tuple(tokens.shape),
+                            "rows": tokens.to_local().tolist()})
+
+    return _lm_data_loop
+
+
+def test_flagship_trains_from_a_dataset_across_daemons(cluster, lm_case):
+    """``TorchTrainer(datasets={"train": from_numpy(tokens)})`` with two
+    workers in two daemon processes: each worker's ``DataIterator`` is
+    pickled to its daemon and its blocks are fetched there; each step every
+    rank reads its half of the batch through ``iter_device_batches`` and
+    contributes it to the global batch on the mesh. The dataset is the batch once per step, so each rank's losses
+    follow the JAX package's one-device trajectory on the whole batch."""
+    params, tokens, want = lm_case
+    half = LM_BATCH[0] // 2
+    ds = rt.data.from_numpy([tokens] * LM_STEPS)
+    res = TorchTrainer(
+        _make_lm_data_loop(), scaling_config=_spread(),
+        datasets={"train": ds},
+        train_loop_config={"width": TINY, "params": params,
+                           "rows": half}).fit()
+    assert res.error is None, res.error
+    rows = {r: [m for m in res.metrics_history if m["rank"] == r]
+            for r in (0, 1)}
+    assert len({rows[r][0]["pid"] for r in rows}) == 2
+    assert [len(rows[r]) for r in rows] == [LM_STEPS] * 2
+    assert all(m["global_batch"] == LM_BATCH for m in res.metrics_history)
+    for step in range(LM_STEPS):       # the ranks' halves make the batch
+        got = sorted(rows[0][step]["rows"] + rows[1][step]["rows"])
+        assert got == sorted(tokens.tolist())
+    for r in rows:
+        got = [(m["loss"], m["grad_norm"]) for m in rows[r]]
+        np.testing.assert_allclose(np.array(got), np.array(want()),
+                                   rtol=1e-4)
 
 
 def test_serve_requests_survive_a_drain_of_both_replicas(cluster):
