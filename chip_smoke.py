@@ -226,7 +226,33 @@ Phases, each of which asserts:
    rollout workers (CPU actors) under ``init()``, 2 iterations; (5) the
    card's free memory back within 64 MiB of its value before (1), and the
    flash kernels' launch counters unmoved (no kernel of the repo is on
-   this path).
+   this path);
+22. RL, the slice's other learners (``ray_tpu_torch.rl``: the memory models
+   for PPO and IMPALA, IMPALA/APPO, DQN, SAC, TD3, DDPG), rollouts on the
+   CPU: (1) one update of each learner on the card against the same
+   learner on the CPU, the same carried weights, batch and fed
+   permutations or noise, at ``RL_RTOL``/``RL_ATOL``, at full width
+   (``RecurrentPPOLearner`` with an LSTM of 64 and with attention 64 /
+   window 8 (the gate's schedule of 40 minibatch steps); ``ImpalaLearner``
+   under RMSprop, APPO's clip and with an LSTM of 64; ``DQNLearner`` with
+   double Q; ``SACLearner`` and a ``TD3Learner`` critic-only step and
+   actor step at fcnet (256, 256)), the largest differences printed, then
+   each card learner alone for 40 optimizer steps (host ms a step); (2)
+   the learning gates of ``tests/test_rl.py`` and
+   ``tests/test_rl_extended.py`` (configs, iterations and thresholds
+   unchanged; LSTM and attention PPO on MemoryCue, LSTM IMPALA, APPO with
+   2 remote workers, DQN, SAC, TD3, DDPG) through ``build().train()``
+   with the learner on the card, 4 at a time, each in a spawned process
+   (run one after another they take ~11 minutes), each with its
+   env-steps/s, learner updates/s and sample and learn ms an iteration;
+   (3) a ``torch.profiler`` window over 100 SAC updates: the device's
+   busy share and kernel launches an update; (4) the card's free memory
+   back within 64 MiB of its value before (1) (the process's one-time
+   costs are paid before it and their bytes printed: the first cuBLAS
+   handles of new threads, the profiler's first session, and the code of
+   the learners' kernels, which CUDA loads at a kernel's first launch and
+   keeps: one update of each learner on the card), and the flash kernels'
+   launch counters unmoved.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -346,6 +372,10 @@ COPY_RUNS = 20
 RL_ITERS = 25
 RL_TUNE_ITERS = 2    # (3) the trial's and (4) the remote workers' iterations
 RL_RTOL, RL_ATOL = 1e-4, 1e-6   # (1) the card's learner against the CPU's
+# Phase 22: the other single-learner algorithms, at their tests' gates.
+RL_TIMED_STEPS = 40        # (1) optimizer steps of each learner, timed
+RL_PROFILE_UPDATES = 100   # (3) SAC updates under the profiler
+RL_GATE_PROCESSES = 4      # (2) gates run at once, a process each
 REPO = pathlib.Path(__file__).resolve().parent
 
 
@@ -1568,9 +1598,10 @@ def resnet_train_phase(device, name, batch, steps=RESNET_STEPS):
 def profile_steps(step, steps=3, top=8):
     """Where a step's time goes: ``torch.profiler`` over ``steps`` calls of
     ``step()``. Returns the host seconds of the window, the share of it in
-    which the device ran a kernel (union of kernel intervals), and the
+    which the device ran a kernel (union of kernel intervals), the
     ``top`` operators by the device time of the kernels they launched
-    themselves, each with its share of all kernel time and its calls."""
+    themselves, each with its share of all kernel time and its calls, and
+    the counts of kernels and of copies (memcpy, memset) the device ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1581,9 +1612,13 @@ def profile_steps(step, steps=3, top=8):
             step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    device_events = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in device_events)
     assert spans, "the profiler saw no device activity"
+    copies = sum(e.name.startswith(("Memcpy", "Memset"))
+                 for e in device_events)
     busy, end = 0, -math.inf
     for s, e in spans:
         if e > end:
@@ -1595,7 +1630,8 @@ def profile_steps(step, steps=3, top=8):
     total = sum(us for _, us, _ in ops)
     ranked = sorted(ops, key=lambda o: -o[1])[:top]
     return dict(wall_s=wall_s, busy_share=busy * 1e-6 / wall_s,
-                top=[(key, us / total, n) for key, us, n in ranked])
+                top=[(key, us / total, n) for key, us, n in ranked],
+                kernels=len(device_events) - copies, copies=copies)
 
 
 def log_profile(what, prof):
@@ -3555,6 +3591,574 @@ def rl_phase(fa, device, card):
         f" 21 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 22: the single-learner algorithms of rl/ ---------------------------
+
+
+def memory_cue_ppo(device, model):
+    """``tests/test_rl_extended.py:177-212``'s PPO on MemoryCue-v0 (16 envs
+    x 20 steps, train batch 640, minibatch 160 = 8 sequences, 10 SGD
+    passes, lr 1e-3, clip 10, entropy 0.01, seed 0) with ``model``, its
+    learner on ``device``."""
+    from ray_tpu_torch.rl import PPO
+    return (PPO.get_default_config()
+            .environment("MemoryCue-v0")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=16,
+                      rollout_fragment_length=20)
+            .training(train_batch_size=640, sgd_minibatch_size=160,
+                      num_sgd_iter=10, lr=1e-3, grad_clip=10.0,
+                      entropy_coeff=0.01, model=model)
+            .resources(device=str(device))
+            .debugging(seed=SEED))
+
+
+def lstm_impala(device):
+    """``tests/test_rl_extended.py:231-249``'s IMPALA with an LSTM of 64 on
+    CartPole (1 remote worker, 8 envs x 50 steps, lr 1e-3, entropy 0.01)."""
+    from ray_tpu_torch.rl import Impala
+    return (Impala.get_default_config()
+            .environment("CartPole-v1")
+            .rollouts(num_rollout_workers=1, num_envs_per_worker=8,
+                      rollout_fragment_length=50)
+            .training(lr=1e-3, entropy_coeff=0.01,
+                      model={"use_lstm": True, "lstm_cell_size": 64})
+            .resources(device=str(device))
+            .debugging(seed=SEED))
+
+
+def appo_gate(device):
+    """``tests/test_rl.py:650-670``'s APPO on CartPole (2 remote workers, 4
+    envs x 50 steps, APPO's defaults: clip 0.3, RMSprop lr 3e-3)."""
+    from ray_tpu_torch.rl import APPO
+    return (APPO.get_default_config()
+            .environment("CartPole-v1")
+            .rollouts(num_rollout_workers=2, num_envs_per_worker=4,
+                      rollout_fragment_length=50)
+            .resources(device=str(device))
+            .debugging(seed=SEED))
+
+
+def dqn_gate(device):
+    """``tests/test_rl.py:276-293``'s DQN on CartPole (4 envs x 16 steps,
+    batch 64, lr 1e-3, double Q, target sync every 100 updates, 8 updates
+    an iteration once 1000 steps are stored)."""
+    from ray_tpu_torch.rl import DQN
+    return (DQN.get_default_config()
+            .environment("CartPole-v1")
+            .rollouts(num_rollout_workers=0, num_envs_per_worker=4,
+                      rollout_fragment_length=16)
+            .training(train_batch_size=64, gamma=0.99, lr=1e-3,
+                      replay_buffer_capacity=20_000,
+                      num_steps_sampled_before_learning_starts=1000,
+                      epsilon_timesteps=8000, n_updates_per_iter=8,
+                      target_network_update_freq=100, grad_clip=10.0)
+            .resources(device=str(device))
+            .debugging(seed=SEED))
+
+
+def pendulum_gate(name, device):
+    """``tests/test_rl.py``'s SAC (:374-399) and TD3 (:603-625) and
+    ``tests/test_rl_extended.py:28-51``'s DDPG gate config on Pendulum:
+    fcnet (256, 256), batch 128, 8 updates an iteration once 256 steps are
+    stored, seed 0."""
+    import ray_tpu_torch.rl as rl
+    return (getattr(rl, name).get_default_config()
+            .environment("Pendulum-v1")
+            .training(train_batch_size=128, n_updates_per_iter=8,
+                      num_steps_sampled_before_learning_starts=256)
+            .resources(device=str(device))
+            .debugging(seed=SEED))
+
+
+def _run_on(devices, build, update):
+    """``update(learner, dev)`` on ``learner = build(dev)`` for each
+    device: -> ({device type: (host tree of what moved, metrics)}, the
+    last device's learner)."""
+    out = {}
+    for dev in devices:
+        learner = build(dev)
+        out[dev.type] = update(learner, dev)
+    return out, learner
+
+
+def _seeded_perms(n, count, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randperm(n, generator=gen) for _ in range(count)]
+
+
+def _seeded_normals(shape, count, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen) for _ in range(count)]
+
+
+def parity_recurrent_ppo(devices, model):
+    """One ``RecurrentPPOLearner.sgd`` (the gate's schedule: 10 passes of 4
+    minibatches of 8 sequences) on a CPU worker's MemoryCue batch,
+    advantages standardized, the same permutations on every device. ->
+    (results, start, one more schedule on the last device, its optimizer
+    steps)."""
+    from ray_tpu_torch.rl import RolloutWorker
+    from ray_tpu_torch.rl.postprocessing import standardize
+    from ray_tpu_torch.rl.recurrent import (RecurrentPolicy,
+                                            RecurrentPPOLearner,
+                                            sequence_arrays)
+    from ray_tpu_torch.rl.sample_batch import SampleBatch, batch_to_device
+    cfg = memory_cue_ppo("cpu", model)
+    T = cfg.rollout_fragment_length
+    worker = RolloutWorker("MemoryCue-v0", num_envs=16,
+                           rollout_fragment_length=T, policy_config=model,
+                           seed=SEED, policy_cls=RecurrentPolicy,
+                           device="cpu")
+    batch = worker.sample()
+    batch[SampleBatch.ADVANTAGES] = standardize(batch[SampleBatch.ADVANTAGES])
+    mb = cfg.sgd_minibatch_size // T
+    arrays = sequence_arrays(batch, T, mb)
+    n_seq = len(arrays[SampleBatch.OBS])
+    perms = _seeded_perms(n_seq, cfg.num_sgd_iter, SEED + 22)
+    weights = worker.get_weights()
+
+    def schedule(learner, dev):
+        return learner.sgd(batch_to_device(arrays, dev), 0.2,
+                           [p.to(dev) for p in perms])
+
+    def update(learner, dev):
+        metrics = schedule(learner, dev)
+        return learner.get_weights(), metrics
+
+    out, learner = _run_on(devices, lambda dev: RecurrentPPOLearner(
+        weights, cfg, False, T, device=dev), update)
+    return (out, weights, lambda: schedule(learner, learner.device),
+            cfg.num_sgd_iter * (n_seq // mb))
+
+
+def parity_impala(devices, cfg):
+    """One ``ImpalaLearner`` update on a CPU worker's time-major CartPole
+    batch (8 envs x 50 steps)."""
+    from ray_tpu_torch.rl import Policy, RolloutWorker
+    from ray_tpu_torch.rl.impala import ImpalaLearner, to_time_major
+    from ray_tpu_torch.rl.recurrent import RecurrentPolicy, uses_memory_model
+    T = cfg.rollout_fragment_length
+    worker = RolloutWorker(
+        "CartPole-v1", num_envs=8, rollout_fragment_length=T,
+        policy_config=dict(cfg.model), seed=SEED, compute_advantages=False,
+        policy_cls=(RecurrentPolicy if uses_memory_model(cfg.model)
+                    else Policy), device="cpu")
+    worker.sample()     # a second fragment, behind the policy's first
+    tm = to_time_major(worker.sample(), T)
+    weights = worker.get_weights()
+
+    def update(learner, dev):
+        metrics = learner.train(tm)
+        return learner.get_weights(), metrics
+
+    out, learner = _run_on(devices, lambda dev: ImpalaLearner(
+        weights, cfg, False, clip_param=cfg.clip_param, device=dev), update)
+    return out, weights, lambda: learner.train(tm), 1
+
+
+def replay_sample(policy_cls, env, cfg, n_steps):
+    """``cfg.train_batch_size`` transitions replayed from ``n_steps``
+    steps of a CPU worker, as the algorithm's replay buffer hands them to
+    its learner."""
+    from ray_tpu_torch.rl import ReplayBuffer, RolloutWorker
+    from ray_tpu_torch.rl.postprocessing import add_next_obs
+    worker = RolloutWorker(env, num_envs=1, rollout_fragment_length=n_steps,
+                           policy_config=dict(cfg.model), seed=SEED,
+                           compute_advantages=False, policy_cls=policy_cls,
+                           device="cpu")
+    replay = ReplayBuffer(1000, seed=SEED)
+    replay.add(add_next_obs(worker.sample()))
+    return worker, replay.sample(cfg.train_batch_size)
+
+
+def parity_dqn(devices):
+    """One double-Q TD update of the DQN gate's learner on 64 replayed
+    CartPole transitions: the loss and TD errors read back (one
+    device->host copy), and the parameters."""
+    from ray_tpu_torch.rl.dqn import DQNLearner, EpsilonGreedyPolicy
+    cfg = dqn_gate("cpu")
+    assert cfg.double_q
+    worker, batch = replay_sample(EpsilonGreedyPolicy, "CartPole-v1", cfg,
+                                  200)
+    weights = worker.get_weights()
+
+    def update(learner, dev):
+        loss, td = learner.train(batch)
+        assert learner.host_reads == 1
+        return (learner.get_weights(),
+                {"loss": loss, **{f"td[{i}]": float(x)
+                                  for i, x in enumerate(td)}})
+
+    out, learner = _run_on(
+        devices, lambda dev: DQNLearner(weights, cfg, device=dev), update)
+    return out, weights, lambda: learner.train(batch), 1
+
+
+def parity_sac(devices):
+    """One SAC update at fcnet (256, 256) on 128 replayed Pendulum
+    transitions, the critics carried from the CPU learner's init and the
+    two normals fed."""
+    from ray_tpu_torch.rl.sac import AUX_KEYS, _USED, SACLearner
+    from ray_tpu_torch.rl.sac import SquashedGaussianPolicy
+    from ray_tpu_torch.rl.sample_batch import batch_to_device
+    cfg = pendulum_gate("SAC", "cpu")
+    worker, batch = replay_sample(SquashedGaussianPolicy, "Pendulum-v1",
+                                  cfg, 200)
+    pol = worker.policy
+    start = SACLearner(worker.get_weights(), 3, 1, pol._scale, pol._center,
+                       cfg, device="cpu").state()
+    noise = _seeded_normals((cfg.train_batch_size, 1), 2, SEED + 22)
+    used = {k: v for k, v in batch.items() if k in _USED}
+
+    def build(dev):
+        learner = SACLearner(worker.get_weights(), 3, 1, pol._scale,
+                             pol._center, cfg, device=dev)
+        learner.set_state(start)
+        return learner
+
+    def update(learner, dev):
+        aux = learner.update(batch_to_device(used, dev),
+                             *(n.to(dev) for n in noise))
+        state = learner.state()
+        return (state[0], state[1]), dict(zip(AUX_KEYS, aux.tolist()))
+
+    out, learner = _run_on(devices, build, update)
+    return out, (start[0], start[1]), lambda: learner.train(batch), 1
+
+
+def parity_td3(devices):
+    """A TD3 critic-only step, then an actor step (targets move), at fcnet
+    (256, 256) on two replayed Pendulum batches, the critics carried from
+    the CPU learner's init and the smoothing noise fed."""
+    from ray_tpu_torch.rl.sample_batch import batch_to_device
+    from ray_tpu_torch.rl.td3 import (AUX_KEYS, _USED, DeterministicPolicy,
+                                      TD3Learner)
+    cfg = pendulum_gate("TD3", "cpu")
+    worker, batch = replay_sample(DeterministicPolicy, "Pendulum-v1", cfg,
+                                  400)
+    pol = worker.policy
+    start = TD3Learner(worker.get_weights(), 3, 1, pol._scale, pol._center,
+                       cfg, device="cpu").state()
+    noise = _seeded_normals((cfg.train_batch_size, 1), 2, SEED + 22)
+    halves = [{k: v[i::2] for k, v in batch.items() if k in _USED}
+              for i in (0, 1)]
+
+    def build(dev):
+        learner = TD3Learner(worker.get_weights(), 3, 1, pol._scale,
+                             pol._center, cfg, device=dev)
+        learner.set_state(start)
+        return learner
+
+    def update(learner, dev):
+        metrics = {}
+        for step, (half, n) in enumerate(zip(halves, noise)):
+            aux = learner.update(batch_to_device(half, dev), n[::2].to(dev),
+                                 do_actor=step == 1)
+            metrics.update({f"{k}[{step}]": v
+                            for k, v in zip(AUX_KEYS, aux.tolist())})
+        return learner.state()[:3], metrics
+
+    out, learner = _run_on(devices, build, update)
+    return out, start[:3], lambda: learner.train(batch), 1
+
+
+def assert_parity(name, out, start, device):
+    """The card's tree and metrics against the CPU's at ``RL_RTOL`` /
+    ``RL_ATOL``: -> (largest parameter difference, largest metric
+    difference, largest move of a parameter from ``start``, the largest
+    difference over the largest move)."""
+    from ray_tpu_torch.rl import models as rl_models
+    (pc, mc), (pg, mg) = out["cpu"], out[device.type]
+    cpu_leaves, card_leaves = (rl_models.tree_leaves(t) for t in (pc, pg))
+    for a, b in zip(card_leaves, cpu_leaves):
+        np.testing.assert_allclose(a, b, rtol=RL_RTOL, atol=RL_ATOL,
+                                   err_msg=name)
+    assert set(mg) == set(mc), (name, sorted(mg), sorted(mc))
+    for k in mc:
+        np.testing.assert_allclose(mg[k], mc[k], rtol=RL_RTOL, atol=RL_ATOL,
+                                   err_msg=f"{name}: {k}")
+    p_err = max(float(np.abs(a - b).max())
+                for a, b in zip(card_leaves, cpu_leaves))
+    moved = max(float(np.abs(a - np.asarray(b)).max()) for a, b in zip(
+        cpu_leaves, rl_models.tree_leaves(start)))
+    return (p_err, max(abs(mg[k] - mc[k]) for k in mc), moved,
+            p_err / moved)
+
+
+def rl_slice_cases():
+    """Phase 22 (1)'s cases: (name, ``case(devices)``), each one update of
+    a learner at its full width on each of ``devices``."""
+    from ray_tpu_torch.rl.impala import APPOConfig, ImpalaConfig
+    lstm = {"use_lstm": True, "lstm_cell_size": 64}
+    attention = {"use_attention": True, "attention_dim": 64,
+                 "attention_window": 8}
+    return [
+        ("RecurrentPPOLearner, LSTM 64",
+         lambda devices: parity_recurrent_ppo(devices, lstm)),
+        ("RecurrentPPOLearner, attention 64 / window 8",
+         lambda devices: parity_recurrent_ppo(devices, attention)),
+        ("ImpalaLearner, RMSprop", lambda devices: parity_impala(
+            devices, ImpalaConfig().rollouts(rollout_fragment_length=50))),
+        ("ImpalaLearner, APPO's clip", lambda devices: parity_impala(
+            devices, APPOConfig().rollouts(rollout_fragment_length=50))),
+        ("ImpalaLearner, LSTM 64 (Adam)",
+         lambda devices: parity_impala(devices, lstm_impala("cpu"))),
+        ("DQNLearner, double Q", parity_dqn),
+        ("SACLearner, (256, 256)", parity_sac),
+        ("TD3Learner, (256, 256), critic-only then actor step", parity_td3),
+    ]
+
+
+def rl_slice_parity(device):
+    """Phase 22 (1): each learner of the slice on the card against itself
+    on the CPU, one update at its full width, then the card's learner
+    alone for ``RL_TIMED_STEPS`` optimizer steps more, on the host clock
+    (each update ends in its metrics' read-back). -> [(name, errors,
+    seconds, ms an optimizer step, one more update on the card)]."""
+    devices = (torch.device("cpu"), device)
+    results = []
+    for name, case in rl_slice_cases():
+        t0 = time.perf_counter()
+        out, start, again, steps = case(devices)
+        errors = assert_parity(name, out, start, device)
+        seconds = time.perf_counter() - t0
+        calls = max(1, RL_TIMED_STEPS // steps)
+        again()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            again()
+        ms = 1e3 * (time.perf_counter() - t0) / (calls * steps)
+        results.append((name, errors, seconds, ms, again))
+    return results
+
+
+def optimizer_steps(learner):
+    """The Adam step count of a learner's (critic) optimizer, or None for
+    RMSprop, which keeps none."""
+    for name in ("opt_state", "copt_state"):
+        opt = getattr(learner, name, None)
+        if opt is not None and "count" in opt:
+            return opt["count"]
+    return None
+
+
+def rl_gate(config, iters):
+    """``config.build()`` and ``iters`` calls of ``train()``, each
+    iteration timed on the host clock, its learner's time apart (the
+    learner reads its metrics back, so its device work ends inside). ->
+    rewards (the first, the mean of the first 5 reported, the worst, the
+    final) and rates."""
+    algo = config.build()
+    learner = algo.learner
+    assert learner.device.type == torch.device(config.device).type
+    spent, calls = [0.0], [0]
+    train = learner.train
+
+    def timed_train(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = train(*args, **kwargs)
+        spent[0] += time.perf_counter() - t0
+        calls[0] += 1
+        return out
+
+    learner.train = timed_train
+    steps0 = optimizer_steps(learner)
+    rewards, wall, learn = [], [], []
+    try:
+        for _ in range(iters):
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            result = algo.train()
+            wall.append(time.perf_counter() - t0)
+            learn.append(spent[0])
+            if "episode_reward_mean" in result:
+                rewards.append(result["episode_reward_mean"])
+        updates = (calls[0] if steps0 is None
+                   else optimizer_steps(learner) - steps0)
+    finally:
+        algo.stop()
+        shutil.rmtree(algo.logdir, ignore_errors=True)
+    wall_s = sum(wall)
+    return {"first": rewards[0], "early": float(np.mean(rewards[:5])),
+            "worst": min([0.0] + rewards), "final": rewards[-1],
+            "iters": iters, "timesteps": result["timesteps_total"],
+            "wall_s": wall_s,
+            "env_steps_per_s": result["timesteps_total"] / wall_s,
+            "updates": updates, "updates_per_s": updates / wall_s,
+            "ms_per_update": 1e3 * sum(learn) / max(1, updates),
+            "learn_ms": 1e3 * sum(learn) / iters,
+            "sample_ms": 1e3 * (wall_s - sum(learn)) / iters,
+            "host_reads": getattr(learner, "host_reads", None)}
+
+
+# Phase 22 (2): name -> (config of the gate's learner on a device, its
+# iterations, the gate and its check), longest first.
+RL_GATES = {
+    "PPO, attention 32 / window 8, MemoryCue": (
+        lambda d: memory_cue_ppo(d, {"use_attention": True,
+                                     "attention_dim": 32,
+                                     "attention_window": 8}), 30,
+        "final > 0.8", lambda r: r["final"] > 0.8),
+    "SAC, Pendulum": (
+        lambda d: pendulum_gate("SAC", d), 900,
+        "final > -800 and > early + 100",
+        lambda r: r["final"] > -800 and r["final"] - r["early"] > 100),
+    "TD3, Pendulum": (
+        lambda d: pendulum_gate("TD3", d), 900,
+        "final > -850 and > early + 150",
+        lambda r: r["final"] > -850 and r["final"] - r["early"] > 150),
+    "PPO, LSTM 32, MemoryCue": (
+        lambda d: memory_cue_ppo(d, {"use_lstm": True,
+                                     "lstm_cell_size": 32}), 30,
+        "final > 0.8", lambda r: r["final"] > 0.8),
+    "DDPG, Pendulum": (
+        lambda d: pendulum_gate("DDPG", d), 600,
+        "final > -1000 and > worst + 250",
+        lambda r: r["final"] > -1000 and r["final"] > r["worst"] + 250),
+    "IMPALA, LSTM 64, CartPole, 1 remote worker": (
+        lstm_impala, 60, "final > max(45, first + 15)",
+        lambda r: r["final"] > max(45.0, r["first"] + 15)),
+    "APPO, CartPole, 2 remote workers": (
+        appo_gate, 200, "final > first + 40 and > 80",
+        lambda r: r["final"] > r["first"] + 40 and r["final"] > 80),
+    "DQN, CartPole": (
+        dqn_gate, 250, "final > 50", lambda r: r["final"] > 50),
+}
+
+
+def run_gate(name, device):
+    """Phase 22 (2), one gate in a process of its own: the learner on
+    ``device``, rollouts on one intra-op CPU thread, remote rollout
+    workers as CPU actors of an ``init()`` of this process."""
+    import ray_tpu_torch as rt
+    torch.set_num_threads(1)
+    build, iters, _, passed = RL_GATES[name]
+    config = build(torch.device(device))
+    remote = config.num_rollout_workers > 0
+    if remote:
+        rt.init(num_cpus=8)
+    try:
+        r = rl_gate(config, iters)
+    finally:
+        if remote:
+            rt.shutdown()
+    r["passed"] = passed(r)
+    return r
+
+
+def run_gates(device, processes=RL_GATE_PROCESSES):
+    """Phase 22 (2): every gate of ``RL_GATES``, ``processes`` at a time,
+    each in a spawned process. -> {name: result}."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(processes) as pool:
+        results = pool.starmap(run_gate, [(name, str(device))
+                                          for name in RL_GATES], chunksize=1)
+        pool.close()
+        pool.join()
+    return dict(zip(RL_GATES, results))
+
+
+def process_warmup(device):
+    """The process's one-time device costs that phase 22 would otherwise
+    make after its memory baseline: cuBLAS handles for new threads (the
+    autograd engine's device thread among them), the profiler's first
+    session, and the code of every kernel the learners launch, which CUDA
+    loads at a kernel's first launch and keeps for the process's life (a
+    second pass of (1) takes no more). Returns the device bytes they
+    took."""
+    from torch.profiler import ProfilerActivity, profile
+    free_device_caches()
+    before = torch.cuda.mem_get_info(device)[0]
+    matmul_threads(4, device)
+    x = torch.ones(64, 64, device=device, requires_grad=True)
+    (x @ x).sum().backward()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        (x @ x).sum().item()
+    del x
+    for _, case in rl_slice_cases():
+        case((device,))
+    free_device_caches()
+    return before - torch.cuda.mem_get_info(device)[0]
+
+
+def rl_slice_phase(fa, device, card):
+    """Phase 22: the memory models, IMPALA/APPO, DQN, SAC, TD3 and DDPG
+    with their learners on the card. Returns nothing: no flash kernel
+    runs, and the launch counters must not move."""
+    warm = process_warmup(device)
+    free_device_caches()
+    free_before = torch.cuda.mem_get_info(device)[0]
+    counts = launch_counts(fa)
+    t_phase = time.perf_counter()
+
+    # (1) each learner on the card against the same learner on the CPU,
+    # then the card's learner alone
+    parity = rl_slice_parity(device)
+    for name, (p_err, m_err, moved, share), seconds, ms, _ in parity:
+        log(f"[rl-slice] (1) {name}: card against CPU (TF32 off), largest "
+            f"parameter difference {p_err:.3e} (the parameters moved up to "
+            f"{moved:.3e}: {share:.2e} of it), largest metric difference "
+            f"{m_err:.3e}, at rtol {RL_RTOL}, atol {RL_ATOL}; {seconds:.1f} "
+            f"s")
+        log(f"[times] {card}: {name}: {ms:.3f} ms an optimizer step on the "
+            f"card alone (host clock, {RL_TIMED_STEPS} steps or more)")
+
+    # (3) where a SAC update's time goes
+    sac = next(again for name, *_, again in parity if name.startswith("SAC"))
+    n = RL_PROFILE_UPDATES
+    prof = profile_steps(sac, steps=n)
+    log(f"[profile] {card}: {n} SAC updates (batch 128, fcnet (256, 256)) in"
+        f" {prof['wall_s']:.3f} s under the profiler, "
+        f"{1e3 * prof['wall_s'] / n:.3f} ms each; device busy "
+        f"{100 * prof['busy_share']:.1f}% of the window; "
+        f"{prof['kernels'] / n:.1f} kernel launches and "
+        f"{prof['copies'] / n:.1f} copies an update; operators by the device"
+        f" time of their own kernels: " + "; ".join(
+            f"{k} {100 * s:.1f}% ({c})" for k, s, c in prof["top"]))
+    del parity, sac
+
+    # (2) the learning gates, learners on the card (rollouts on the CPU;
+    # remote workers are CPU actors), RL_GATE_PROCESSES at a time
+    t0 = time.perf_counter()
+    gates = run_gates(device)
+    gates_s = time.perf_counter() - t0
+    for name, r in gates.items():
+        gate = RL_GATES[name][2]
+        assert r["passed"], (name, gate, r)
+        reads = ("" if r["host_reads"] is None else
+                 f", {r['host_reads'] / r['updates']:.2f} device->host reads"
+                 f" an update")
+        log(f"[rl-slice] (2) {name}: {r['iters']} iterations, learner on the"
+            f" card, episode_reward_mean first {r['first']:.2f}, early "
+            f"{r['early']:.2f}, worst {r['worst']:.2f}, final "
+            f"{r['final']:.2f}: the gate {gate} holds; {r['wall_s']:.1f} s")
+        log(f"[times] {card}: {name}, {RL_GATE_PROCESSES} gates at a time: "
+            f"{r['env_steps_per_s']:.1f} env-steps/s, "
+            f"{r['updates_per_s']:.1f} learner updates/s ({r['updates']} "
+            f"updates, {r['ms_per_update']:.3f} ms each on the host clock), "
+            f"sample {r['sample_ms']:.2f} ms and learn {r['learn_ms']:.2f} ms"
+            f" an iteration (means of {r['iters']}){reads}")
+    log(f"[rl-slice] (2) {len(gates)} gates in {gates_s:.1f} s, "
+        f"{RL_GATE_PROCESSES} processes at a time")
+
+    # (4) the card's memory is back, and no flash kernel ran
+    assert launch_counts(fa) == counts, (launch_counts(fa), counts)
+    free_after = None
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline:
+        free_device_caches()
+        free_after = torch.cuda.mem_get_info(device)[0]
+        if free_before - free_after <= PROCESS_MEMORY_SLACK:
+            break
+        time.sleep(0.2)
+    assert free_before - free_after <= PROCESS_MEMORY_SLACK, (
+        free_before, free_after)
+    log(f"[rl-slice] (4) the card's free memory {free_before} bytes before "
+        f"(1), {free_after} after (the process's one-time costs, {warm} "
+        f"bytes: cuBLAS handles, the profiler, the learners' kernels' code, "
+        f"paid before); the flash launch counters did not move; "
+        f"phase 22 in {time.perf_counter() - t_phase:.1f} s")
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3754,6 +4358,10 @@ def main() -> int:
     # and fed by remote rollout workers (no flash kernel runs)
     free_device_caches()
     rl_phase(fa, device, card)
+
+    # 22. the memory models, IMPALA/APPO, DQN, SAC, TD3 and DDPG, each
+    # learner on the card (no flash kernel runs)
+    rl_slice_phase(fa, device, card)
 
     fwd_launches, dq_launches, dkv_launches = (
         a + b + c + d for a, b, c, d in zip(trained["launches"],

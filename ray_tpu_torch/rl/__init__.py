@@ -5,11 +5,14 @@ Port of ``ray_tpu/rl`` (the reference's RLlib, ``rllib/``, SURVEY §2.6):
 rollout collection from CPU env actors with a learner on one device (the
 card unless ``resources(device="cpu")``). The numpy modules (envs, sample
 batches, GAE, connectors, the external env, replay buffers, the rollout
-workers) are copied; ``models``, ``policy`` and ``ppo`` are written in
-torch. This slice ports PPO and A2C; the other algorithms of the JAX
-package (``recurrent``, DD-PPO and the mesh learner, DQN, IMPALA/APPO,
-SAC, TD3/DDPG, ES/ARS, QMIX, multi-agent, offline) are still to port
-(ROADMAP Queue 1).
+workers, ``a2c``, ``ddpg`` and ``es``) are copied; ``models``,
+``policy`` and the learners are written in torch. Ported: PPO and A2C,
+the memory models (``use_lstm`` / ``use_attention``, ``recurrent``) for
+PPO and IMPALA, IMPALA/APPO, DQN, SAC, TD3/DDPG and ES/ARS (numpy only:
+no learner, no device). Each learner holds its parameters and optimizer
+state on one device, in the JAX package's tree layout. Still to port
+(ROADMAP Queue 1): the mesh learner and DD-PPO, QMIX, multi-agent PPO
+and the offline algorithms (BC, MARWIL, CQL).
 """
 
 from ray_tpu_torch.rl.a2c import A2C, A2CConfig
@@ -19,23 +22,33 @@ from ray_tpu_torch.rl.connectors import (ClipActions, ClipObs, Connector,
                                          FrameStack, NormalizeObs,
                                          ScaleActions, build_connectors,
                                          register_connector)
+from ray_tpu_torch.rl.ddpg import DDPG, DDPGConfig
+from ray_tpu_torch.rl.dqn import DQN, DQNConfig
 from ray_tpu_torch.rl.env import (CartPoleEnv, EnvSpec, MemoryCueEnv,
                                   PendulumEnv, VectorEnv, make_env,
                                   register_env)
+from ray_tpu_torch.rl.es import ARS, ARSConfig, ES, ESConfig
 from ray_tpu_torch.rl.external_env import ExternalEnv, ExternalEnvSampler
+from ray_tpu_torch.rl.impala import APPO, APPOConfig, Impala, ImpalaConfig
 from ray_tpu_torch.rl.policy import Policy
 from ray_tpu_torch.rl.ppo import PPO, PPOConfig
+from ray_tpu_torch.rl.recurrent import RecurrentPolicy
 from ray_tpu_torch.rl.replay_buffer import (PrioritizedReplayBuffer,
                                             ReplayBuffer)
 from ray_tpu_torch.rl.rollout_worker import (RolloutWorker, WorkerSet,
                                              synchronous_parallel_sample)
+from ray_tpu_torch.rl.sac import SAC, SACConfig
 from ray_tpu_torch.rl.sample_batch import SampleBatch, concat_samples
+from ray_tpu_torch.rl.td3 import TD3, TD3Config
 
 __all__ = [
     "Algorithm", "AlgorithmConfig", "Policy", "SampleBatch", "concat_samples",
     "RolloutWorker", "WorkerSet", "synchronous_parallel_sample",
     "ReplayBuffer", "PrioritizedReplayBuffer",
-    "PPO", "PPOConfig", "A2C", "A2CConfig",
+    "PPO", "PPOConfig", "A2C", "A2CConfig", "DQN", "DQNConfig",
+    "Impala", "ImpalaConfig", "APPO", "APPOConfig",
+    "SAC", "SACConfig", "TD3", "TD3Config", "DDPG", "DDPGConfig",
+    "ES", "ESConfig", "ARS", "ARSConfig", "RecurrentPolicy",
     "ExternalEnv", "ExternalEnvSampler",
     "Connector", "ConnectorPipeline", "build_connectors",
     "register_connector", "FlattenObs", "ClipObs", "NormalizeObs",

@@ -162,13 +162,11 @@ class Algorithm(Trainable):
             device="cpu",
         )
         # Model catalog seam (rllib/models/catalog.py use_lstm /
-        # use_attention): memory models need the stateful policy.
-        from ray_tpu_torch.rl.recurrent import uses_memory_model
+        # use_attention): memory models swap in the stateful policy.
+        from ray_tpu_torch.rl.recurrent import (RecurrentPolicy,
+                                                uses_memory_model)
         if uses_memory_model(cfg.model):
-            raise NotImplementedError(
-                "use_lstm / use_attention need rl/recurrent.py's "
-                "RecurrentPolicy, which is not ported yet (ROADMAP Queue 1: "
-                "rl/)")
+            kw["policy_cls"] = RecurrentPolicy
         return kw
 
     def _needs_advantages(self) -> bool:

@@ -30,9 +30,12 @@ def tree_map(fn: Callable, tree: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves in ``tree_map``'s order (dict keys in insertion order)."""
+    """The leaves in ``jax.tree_util.tree_leaves``'s order (dict keys
+    sorted), so that two trees of one structure built in different key
+    orders (a JAX tree carried across, a tree built here) pair leaf by
+    leaf."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]

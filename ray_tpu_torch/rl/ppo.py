@@ -61,6 +61,32 @@ def adam_init(params: Any) -> Dict[str, Any]:
             "nu": _models.tree_map(torch.zeros_like, params)}
 
 
+def opt_state_to_numpy(opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """A host copy of an optimizer state: the step count (if any) as an
+    int, each moment as a numpy tree."""
+    return {k: v if k == "count" else _models.to_numpy(v)
+            for k, v in opt_state.items()}
+
+
+def opt_state_from_numpy(opt_state: Dict[str, Any], device) -> Dict[str, Any]:
+    """``opt_state_to_numpy``'s inverse, the moments on ``device``."""
+    return {k: int(v) if k == "count" else _models.params_from_numpy(
+        v, device) for k, v in opt_state.items()}
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor],
+                        max_norm: float) -> List[torch.Tensor]:
+    """``optax.clip_by_global_norm``: the gradients as they are while their
+    global norm is below ``max_norm``, else scaled by ``max_norm / norm``
+    (not ``clip_grad_norm_``'s ``norm + 1e-6``). New tensors: the caller's
+    stay as given."""
+    grads = list(grads)
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    return torch._foreach_mul(grads, scale)
+
+
 @torch.no_grad()
 def clip_adam_step_(leaves: Sequence[torch.Tensor],
                     grads: Sequence[torch.Tensor], opt_state: Dict[str, Any],
@@ -68,16 +94,10 @@ def clip_adam_step_(leaves: Sequence[torch.Tensor],
     """One ``optax.chain(clip_by_global_norm(max_norm), adam(lr))`` update,
     in place on ``leaves`` and ``opt_state``.
 
-    The clip keeps the gradient while its global norm is below
-    ``max_norm`` and otherwise scales it by ``max_norm / norm`` (not
-    ``clip_grad_norm_``'s ``norm + 1e-6``). Adam: b1 0.9, b2 0.999, eps
-    1e-8, eps_root 0, bias correction computed in float32 as optax does.
+    Adam: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias correction computed
+    in float32 as optax does.
     """
-    grads = list(grads)
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    scale = torch.where(norm < max_norm, torch.ones_like(norm),
-                        max_norm / norm)
-    grads = torch._foreach_mul(grads, scale)   # the caller's stay as given
+    grads = clip_by_global_norm(grads, max_norm)
     mu = _models.tree_leaves(opt_state["mu"])
     nu = _models.tree_leaves(opt_state["nu"])
     torch._foreach_mul_(mu, ADAM_B1)
@@ -109,6 +129,7 @@ class PPOLearner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._continuous = continuous
+        self.minibatch = cfg.sgd_minibatch_size   # rows of the batch's dim 0
         self.set_state((init_params, None))
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 7919)
@@ -125,11 +146,11 @@ class PPOLearner:
             perms: Sequence[torch.Tensor]) -> Dict[str, float]:
         """The whole schedule on a batch already on the device: for each
         permutation (one an epoch), the minibatches of ``x[perm][:num_mb *
-        mb]`` in order (the remainder is dropped), each one clip+Adam step.
-        The metrics are the mean over every minibatch of every epoch, and
-        ``kl`` the mean of the last epoch's (``lax.scan``'s outputs in the
-        JAX package)."""
-        mb = self.cfg.sgd_minibatch_size
+        mb]`` in order (the remainder is dropped), each one clip+Adam step,
+        ``mb`` being ``self.minibatch``. The metrics are the mean over
+        every minibatch of every epoch, and ``kl`` the mean of the last
+        epoch's (``lax.scan``'s outputs in the JAX package)."""
+        mb = self.minibatch
         n = batch[SampleBatch.OBS].shape[0]
         num_mb = max(1, n // mb)
         leaves = _models.tree_leaves(self.params)
@@ -165,10 +186,7 @@ class PPOLearner:
         return _models.to_numpy(self.params)
 
     def state(self):
-        opt = self.opt_state
-        return (self.get_weights(),
-                {"count": opt["count"], "mu": _models.to_numpy(opt["mu"]),
-                 "nu": _models.to_numpy(opt["nu"])})
+        return self.get_weights(), opt_state_to_numpy(self.opt_state)
 
     def set_state(self, state):
         params, opt_state = state
@@ -178,10 +196,7 @@ class PPOLearner:
         if opt_state is None:
             self.opt_state = adam_init(self.params)
         else:
-            self.opt_state = {
-                "count": int(opt_state["count"]),
-                "mu": _models.params_from_numpy(opt_state["mu"], self.device),
-                "nu": _models.params_from_numpy(opt_state["nu"], self.device)}
+            self.opt_state = opt_state_from_numpy(opt_state, self.device)
 
 
 class PPO(Algorithm):
@@ -195,12 +210,13 @@ class PPO(Algorithm):
         cfg = self.algo_config
         lw = self.workers.local_worker
         self.kl_coeff = cfg.kl_coeff
-        from ray_tpu_torch.rl.recurrent import uses_memory_model
+        from ray_tpu_torch.rl.recurrent import (RecurrentPPOLearner,
+                                                uses_memory_model)
         if uses_memory_model(cfg.model):
-            raise NotImplementedError(
-                "use_lstm / use_attention need rl/recurrent.py's "
-                "RecurrentPPOLearner, which is not ported yet (ROADMAP "
-                "Queue 1: rl/)")
+            return RecurrentPPOLearner(lw.get_weights(), cfg,
+                                       lw.policy.continuous,
+                                       cfg.rollout_fragment_length,
+                                       device=self.device)
         return PPOLearner(lw.get_weights(), cfg, lw.policy.continuous,
                           mesh=cfg.mesh, device=self.device)
 
@@ -214,12 +230,15 @@ class PPO(Algorithm):
         batch[SampleBatch.ADVANTAGES] = standardize(
             batch[SampleBatch.ADVANTAGES])
         # Slice (or pad) to a multiple of the minibatch, as the JAX package
-        # does for its one compiled shape.
-        n = (len(batch) // cfg.sgd_minibatch_size) * cfg.sgd_minibatch_size
-        if n == 0:
-            batch = batch.pad_to(cfg.sgd_minibatch_size)
-        else:
-            batch = batch.slice(0, n)
+        # does for its one compiled shape. The sequence learner shapes its
+        # own batches (slicing here could cut a fragment mid-sequence).
+        if not getattr(self.learner, "handles_batch_shaping", False):
+            n = (len(batch) // cfg.sgd_minibatch_size
+                 ) * cfg.sgd_minibatch_size
+            if n == 0:
+                batch = batch.pad_to(cfg.sgd_minibatch_size)
+            else:
+                batch = batch.slice(0, n)
         metrics = self.learner.train(batch, self.kl_coeff)
         # Adaptive KL coefficient (ppo.py:433-437).
         kl = metrics["kl"]

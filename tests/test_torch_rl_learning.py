@@ -195,15 +195,54 @@ def test_algorithm_is_tune_trainable(runtime, tmp_path):
 
 def test_build_refuses_the_card_without_one_and_memory_models(monkeypatch):
     """``build()`` puts the learner on the card unless told otherwise, and
-    raises without one; use_lstm / use_attention are not ported yet."""
+    raises without one; use_lstm / use_attention build the memory models'
+    policy and sequence learner on the device they are given."""
+    from ray_tpu_torch.rl.recurrent import (RecurrentPolicy,
+                                            RecurrentPPOLearner)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     config = small_ppo()
     config.device = None
     with pytest.raises(RuntimeError, match="cuda"):
         config.build()
     for key in ("use_lstm", "use_attention"):
-        with pytest.raises(NotImplementedError, match="recurrent"):
-            small_ppo().training(model={key: True}).build()
+        algo = small_ppo().training(model={key: True}).build()
+        try:
+            assert isinstance(algo.learner, RecurrentPPOLearner)
+            assert algo.learner.device.type == "cpu"
+            assert isinstance(algo.workers.local_worker.policy,
+                              RecurrentPolicy)
+        finally:
+            algo.stop()
+
+
+@pytest.mark.parametrize("name,env", [
+    ("Impala", "CartPole-v1"), ("APPO", "CartPole-v1"),
+    ("DQN", "CartPole-v1"), ("SAC", "Pendulum-v1"), ("TD3", "Pendulum-v1"),
+    ("DDPG", "Pendulum-v1")])
+def test_every_learner_defaults_to_the_card(name, env, monkeypatch):
+    """Each algorithm of the slice puts its learner on ``cuda`` unless
+    ``resources(device=)`` says otherwise: without a card, ``build()``
+    raises before any rollout worker starts; with ``"cpu"`` every learner
+    tensor is on the CPU."""
+    import ray_tpu_torch.rl as rl
+    cls = getattr(rl, name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = (cls.get_default_config().environment(env)
+              .rollouts(num_rollout_workers=0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        config.build()
+    algo = config.resources(device="cpu").build()
+    try:
+        learner = algo.learner
+        assert learner.device.type == "cpu"
+        trees = [v for k, v in vars(learner).items()
+                 if k in ("params", "target_params", "target_q", "cparams",
+                          "aparams", "target", "opt_state")]
+        assert trees and all(t.device.type == "cpu"
+                             for t in models.tree_leaves(trees)
+                             if isinstance(t, torch.Tensor))
+    finally:
+        algo.stop()
 
 
 def test_rollout_worker_shapes_and_continuous_actions():
