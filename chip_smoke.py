@@ -252,7 +252,29 @@ Phases, each of which asserts:
    handles of new threads, the profiler's first session, and the code of
    the learners' kernels, which CUDA loads at a kernel's first launch and
    keeps: one update of each learner on the card), and the flash kernels'
-   launch counters unmoved.
+   launch counters unmoved;
+23. RL, the multi-learner slice (``ray_tpu_torch.rl``: the PPO learner over
+   a mesh, DD-PPO, multi-agent PPO, QMIX, BC, MARWIL, CQL), rollouts on the
+   CPU: (1) one update of each on the card against the same learner on the
+   CPU, the same weights, batch and fed permutations, at
+   ``RL_RTOL``/``RL_ATOL`` (phase 21's PPO schedule by the learner over a
+   ``data=1`` mesh of an NCCL world of one, held also against the
+   one-device learner on the card; a DD-PPO step of the gate's two workers,
+   each on its own thread and 400-step batch; ``QMIXLearner`` on 128
+   replayed joint transitions; the BC, MARWIL and CQL steps at their gates'
+   shapes), the largest differences printed, then each card learner alone
+   for 40 optimizer steps (host ms a step); (2) the reference's gates
+   (configs, iterations and thresholds unchanged: multi-agent PPO on the
+   coordination game, BC, CQL, MARWIL against BC, QMIX on the two-step game
+   from the JAX package's seed-0 parameters in ``tests/data/``, DD-PPO on
+   CartPole with its workers bit-identical after) through
+   ``build().train()`` with the learners on the card, 4 at a time, each in
+   a spawned process, with env-steps/s or updates/s and host ms an update;
+   (3) DD-PPO with ``collective_backend="nccl"``, both workers folded on the
+   card, 2 iterations: lockstep, and the allreduce's host ms; (4) the
+   card's free memory back within 64 MiB of its value before (1) (each case
+   run once on the card before the baseline, and what that took printed),
+   and the flash kernels' launch counters unmoved.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -267,6 +289,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -376,7 +399,12 @@ RL_RTOL, RL_ATOL = 1e-4, 1e-6   # (1) the card's learner against the CPU's
 RL_TIMED_STEPS = 40        # (1) optimizer steps of each learner, timed
 RL_PROFILE_UPDATES = 100   # (3) SAC updates under the profiler
 RL_GATE_PROCESSES = 4      # (2) gates run at once, a process each
+# Phase 23: the multi-learner slice (mesh PPO, DD-PPO, multi-agent PPO,
+# QMIX, BC, MARWIL, CQL), at the tests' gates.
+DDPPO_NCCL_ITERS = 2       # (3) DD-PPO iterations over the nccl backend
 REPO = pathlib.Path(__file__).resolve().parent
+# (2) QMIX's gate starts from the JAX package's seed-0 parameters
+QMIX_JAX_INIT = REPO / "tests" / "data" / "qmix_two_step_jax_init.npz"
 
 
 def log(msg: str) -> None:
@@ -3908,15 +3936,16 @@ def rl_slice_cases():
     ]
 
 
-def rl_slice_parity(device):
-    """Phase 22 (1): each learner of the slice on the card against itself
-    on the CPU, one update at its full width, then the card's learner
-    alone for ``RL_TIMED_STEPS`` optimizer steps more, on the host clock
-    (each update ends in its metrics' read-back). -> [(name, errors,
-    seconds, ms an optimizer step, one more update on the card)]."""
+def rl_slice_parity(device, cases=None):
+    """Phase 22 (1) (and 23 (1) with its ``cases``): each learner of the
+    slice on the card against itself on the CPU, one update at its full
+    width, then the card's learner alone for ``RL_TIMED_STEPS`` optimizer
+    steps more, on the host clock (each update ends in its metrics'
+    read-back). -> [(name, errors, seconds, ms an optimizer step, one more
+    update on the card)]."""
     devices = (torch.device("cpu"), device)
     results = []
-    for name, case in rl_slice_cases():
+    for name, case in cases or rl_slice_cases():
         t0 = time.perf_counter()
         out, start, again, steps = case(devices)
         errors = assert_parity(name, out, start, device)
@@ -4159,6 +4188,664 @@ def rl_slice_phase(fa, device, card):
         f"paid before); the flash launch counters did not move; "
         f"phase 22 in {time.perf_counter() - t_phase:.1f} s")
 
+
+# -- phase 23: the multi-learner slice of rl/ --------------------------------
+
+
+class CartPoleExpert:
+    """``tests/test_rl.py``'s hand-coded balance controller (``flip``: its
+    anti-expert, ``tests/test_rl_extended.py``'s)."""
+    continuous = False
+
+    def __init__(self, flip=False):
+        self.flip = flip
+
+    def compute_actions(self, obs, explore=True):
+        obs = np.atleast_2d(obs)
+        a = (obs[:, 2] + 0.5 * obs[:, 3] > 0).astype(np.int64)
+        if self.flip:
+            a = 1 - a
+        z = np.zeros(len(a), np.float32)
+        return a, z, z
+
+
+def expert_dataset(n_steps=4000):
+    """The BC and CQL gates' dataset: 4000 expert CartPole steps."""
+    from ray_tpu_torch.rl import collect_dataset
+    return collect_dataset("CartPole-v1", policy=CartPoleExpert(),
+                           n_steps=n_steps, seed=0)
+
+
+def mixed_dataset(n_steps=4000):
+    """The MARWIL gate's dataset: half expert, half anti-expert steps."""
+    from ray_tpu_torch.rl import collect_dataset, concat_samples
+    return concat_samples([
+        collect_dataset("CartPole-v1", policy=CartPoleExpert(),
+                        n_steps=n_steps // 2, seed=0),
+        collect_dataset("CartPole-v1", policy=CartPoleExpert(flip=True),
+                        n_steps=n_steps // 2, seed=1)])
+
+
+def qmix_jax_init():
+    """The JAX package's seed-0 QMIX parameters on the two-step game, as
+    ``tests/test_torch_rl_multi_agent.py`` saved them (and holds them
+    equal to the JAX package's): the reference gate's start."""
+    with np.load(QMIX_JAX_INIT) as z:
+        flat = {k: z[k] for k in z.files}
+    params = {}
+    for key in sorted(flat):
+        net, layer, leaf = key.split(".")
+        layers = params.setdefault(net, {"layers": []})["layers"]
+        while len(layers) <= int(layer):
+            layers.append({})
+        layers[int(layer)][leaf] = flat[key]
+    return params
+
+
+def ddppo_gate_config(device, backend="cpu"):
+    """``tests/test_rl_extended.py:152-173``'s DD-PPO on CartPole (2
+    workers, 4 envs x 100 steps each, 400 steps a worker an iteration, 6
+    SGD steps, lr 3e-4, seed 0)."""
+    from ray_tpu_torch.rl import DDPPO
+    return (DDPPO.get_default_config()
+            .environment("CartPole-v1")
+            .rollouts(num_rollout_workers=2, num_envs_per_worker=4,
+                      rollout_fragment_length=100)
+            .training(train_batch_size=400, num_sgd_iter=6, lr=3e-4,
+                      collective_backend=backend)
+            .resources(device=str(device))
+            .debugging(seed=SEED))
+
+
+@contextlib.contextmanager
+def world_of_one(device):
+    """A ``torch.distributed`` world of one rank in this process (NCCL on
+    the card, gloo on the CPU), as phase 14 makes it."""
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+        **({"device_id": torch.device("cuda", torch.cuda.current_device())}
+           if device.type == "cuda" else {}))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def parity_mesh_ppo(devices):
+    """One ``sgd`` of phase 21's schedule (8 epochs x 3 minibatches of
+    256) by the CPU learner and, on the card, by the learner over a
+    ``data=1`` mesh of a world of one, held also against the one-device
+    learner on the card (it runs no collective at size 1)."""
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.rl import RolloutWorker
+    from ray_tpu_torch.rl.postprocessing import standardize
+    from ray_tpu_torch.rl.ppo import PPOLearner
+    from ray_tpu_torch.rl.sample_batch import SampleBatch, batch_to_device
+    cfg = ppo_gate_config("cpu")
+    worker = RolloutWorker("CartPole-v1", num_envs=8,
+                           rollout_fragment_length=100, seed=SEED,
+                           device="cpu")
+    batch = worker.sample()
+    batch[SampleBatch.ADVANTAGES] = standardize(batch[SampleBatch.ADVANTAGES])
+    n = len(batch) // cfg.sgd_minibatch_size * cfg.sgd_minibatch_size
+    batch = batch.slice(0, n)
+    used = {k: batch[k] for k in (
+        SampleBatch.OBS, SampleBatch.ACTIONS, SampleBatch.ACTION_LOGP,
+        SampleBatch.ADVANTAGES, SampleBatch.VALUE_TARGETS)}
+    perms = _seeded_perms(n, cfg.num_sgd_iter, SEED + 23)
+    weights = worker.get_weights()
+
+    def schedule(learner):
+        dev = learner.device
+        return learner.sgd(batch_to_device(used, dev), 0.2,
+                           [p.to(dev) for p in perms])
+
+    out, learner = {}, None
+    for dev in devices:
+        if dev.type == "cpu" and dev is devices[0]:
+            learner = PPOLearner(weights, cfg, False, device=dev)
+            metrics = schedule(learner)
+            out[dev.type] = (learner.get_weights(), metrics)
+            continue
+        with world_of_one(dev):
+            mesh = build_mesh(MeshConfig(data=1), dev)
+            learner = PPOLearner(weights, cfg, False, mesh=mesh)
+            assert learner.device.type == dev.type and learner.mesh is mesh
+        metrics = schedule(learner)
+        single = PPOLearner(weights, cfg, False, device=learner.device)
+        single_metrics = schedule(single)
+        p_err = 0.0
+        for a, b in zip(rl_tree_leaves(learner.get_weights()),
+                        rl_tree_leaves(single.get_weights())):
+            np.testing.assert_allclose(a, b, rtol=RL_RTOL, atol=RL_ATOL)
+            p_err = max(p_err, float(np.abs(a - b).max()))
+        m_err = max(abs(metrics[k] - single_metrics[k]) for k in metrics)
+        np.testing.assert_allclose([metrics[k] for k in metrics],
+                                   [single_metrics[k] for k in metrics],
+                                   rtol=RL_RTOL, atol=RL_ATOL)
+        again = PPOLearner(weights, cfg, False, device=learner.device)
+        schedule(again)
+        self_err = max(float(np.abs(a - b).max()) for a, b in zip(
+            rl_tree_leaves(again.get_weights()),
+            rl_tree_leaves(single.get_weights())))
+        log(f"[rl-multi] (1) the data=1 mesh learner against the one-device "
+            f"learner, both on {dev}: largest parameter difference "
+            f"{p_err:.3e}, metric {m_err:.3e}; two runs of the one-device "
+            f"learner differ by {self_err:.3e}")
+        out[dev.type] = (learner.get_weights(), metrics)
+    return (out, weights, lambda: schedule(learner),
+            cfg.num_sgd_iter * (n // cfg.sgd_minibatch_size))
+
+
+def rl_tree_leaves(tree):
+    from ray_tpu_torch.rl import models as rl_models
+    return rl_models.tree_leaves(tree)
+
+
+def parity_ddppo(devices):
+    """One DD-PPO step of the gate's two workers (the ``cpu`` backend), each
+    on its own fixed 400-step CartPole batch: the mean gradient, clip +
+    Adam. Each worker lives on a thread of its own, which its collective
+    group is bound to."""
+    import concurrent.futures
+    from ray_tpu_torch.rl import Policy, RolloutWorker, make_env
+    from ray_tpu_torch.rl.ddppo import _DDPPOWorker
+    from ray_tpu_torch.rl.ppo import _USED, AUX_KEYS
+    from ray_tpu_torch.rl.sample_batch import batch_to_device
+    cfg = ddppo_gate_config("cpu")
+    kwargs = dict(env_name_or_maker="CartPole-v1", num_envs=4,
+                  rollout_fragment_length=100, seed=SEED, device="cpu")
+    init = Policy(make_env("CartPole-v1").spec, seed=SEED,
+                  device="cpu").get_weights()
+    batches = []
+    for rank in range(2):
+        w = RolloutWorker(worker_index=rank, **kwargs)
+        w.set_weights(init)
+        batches.append({k: v for k, v in w.sample().items() if k in _USED})
+    made = []   # (pools, workers) of each device's pair
+
+    def build(dev):
+        pools = [concurrent.futures.ThreadPoolExecutor(1) for _ in range(2)]
+        group = f"ddppo-phase23-{dev.type}-{len(made)}"
+        workers = [f.result(timeout=60) for f in [
+            pools[r].submit(_DDPPOWorker, kwargs, cfg.to_dict(), init, r, 2,
+                            group, str(dev)) for r in range(2)]]
+        arrays = [batch_to_device(b, dev) for b in batches]
+        made.append((pools, workers))
+
+        def step():
+            return [f.result(timeout=60).tolist() for f in [
+                pools[r].submit(workers[r].sgd_step, arrays[r], 0.2)
+                for r in range(2)]]
+        step.workers = workers
+        return step
+
+    def update(step, dev):
+        auxes = step()
+        w0, w1 = (w.get_weights() for w in step.workers)
+        assert all(np.array_equal(a, b) for a, b in zip(
+            rl_tree_leaves(w0), rl_tree_leaves(w1))), "DD-PPO lost lockstep"
+        return w0, {f"{k}[{r}]": v for r in range(2)
+                    for k, v in zip(AUX_KEYS, auxes[r])}
+
+    out, step = _run_on(devices, build, update)
+
+    def close_all():
+        for pools, workers in made:
+            for pool, w in zip(pools, workers):
+                pool.submit(w.leave_group).result(timeout=60)
+                pool.shutdown()
+    return out, init, step, 1, close_all
+
+
+def parity_qmix(devices):
+    """One ``QMIXLearner.train`` (double Q, batch 128) on joint transitions
+    replayed from 150 two-step episodes of a CPU run, from the host-drawn
+    seed-0 init: the loss and ``q_tot_mean`` read back once."""
+    from ray_tpu_torch.rl import QMIX, TwoStepCooperativeGameEnv
+    from ray_tpu_torch.rl.qmix import QMIXLearner
+    algo = (QMIX.get_default_config()
+            .environment(lambda c: TwoStepCooperativeGameEnv(c))
+            .resources(device="cpu").debugging(seed=SEED).build())
+    for _ in range(150):
+        algo._collect_episode()
+    batch = algo._sample_batch()
+    start = algo.learner.state()
+    dims = (algo.obs_dim, len(algo.agent_ids), algo.n_actions,
+            algo.state_dim)
+    cfg = algo.algo_config
+
+    def build(dev):
+        learner = QMIXLearner(*dims, cfg, device=dev)
+        learner.set_state(start)
+        return learner
+
+    def update(learner, dev):
+        metrics = learner.train(batch)
+        assert learner.host_reads == 1
+        return learner.state()[0], metrics
+
+    out, learner = _run_on(devices, build, update)
+    return out, start[0], lambda: learner.train(batch), 1
+
+
+def parity_offline(name):
+    """One step of BC's, MARWIL's or CQL's learner at its gate's shape
+    (batch 256; fcnet (64, 64), CQL's (256, 256)) on the gate's dataset,
+    256 rows drawn by a seeded numpy generator, from a CPU policy's
+    init."""
+    def case(devices):
+        import ray_tpu_torch.rl as rl
+        from ray_tpu_torch.rl import Policy, SampleBatch, make_env
+        from ray_tpu_torch.rl.dqn import EpsilonGreedyPolicy
+        from ray_tpu_torch.rl.offline import (BCLearner, CQLLearner,
+                                              MARWILLearner)
+        from ray_tpu_torch.rl.sample_batch import batch_to_device
+        cfg = getattr(rl, name).get_default_config()
+        ds = mixed_dataset() if name == "MARWIL" else expert_dataset()
+        idx = np.random.default_rng(SEED).integers(0, len(ds),
+                                                   cfg.train_batch_size)
+        cols = {"obs": SampleBatch.OBS, "act": SampleBatch.ACTIONS,
+                "rew": SampleBatch.REWARDS, "nxt": SampleBatch.NEXT_OBS,
+                "done": SampleBatch.TERMINATEDS}
+        host = {k: np.asarray(ds[c])[idx] for k, c in cols.items()}
+        if name == "MARWIL":
+            host["ret"] = rl.MARWIL._mc_returns(ds, cfg.gamma)[idx]
+        policy_cls = EpsilonGreedyPolicy if name == "CQL" else Policy
+        init = policy_cls(make_env("CartPole-v1").spec, dict(cfg.model),
+                          seed=SEED, device="cpu").get_weights()
+
+        def build(dev):
+            if name == "CQL":
+                return CQLLearner(init, cfg, device=dev)
+            cls = MARWILLearner if name == "MARWIL" else BCLearner
+            return cls(init, cfg, False, device=dev)
+
+        def step(learner):
+            b = batch_to_device(host, learner.device)
+            if name == "CQL":
+                return learner.step(b)
+            if name == "MARWIL":
+                return learner.step(b["obs"], b["act"], b["ret"])
+            return learner.step(b["obs"], b["act"])[None]
+
+        keys = {"BC": ("bc_loss",), "MARWIL": ("policy_loss", "vf_loss"),
+                "CQL": ("td_loss", "cql_penalty")}[name]
+
+        def update(learner, dev):
+            metrics = dict(zip(keys, step(learner).tolist()))
+            if name == "MARWIL":
+                metrics["ms"] = float(learner.ms)
+            return learner.get_weights(), metrics
+
+        out, learner = _run_on(devices, build, update)
+        return out, init, lambda: step(learner).tolist(), 1
+    return case
+
+
+def rl_multi_cases():
+    """Phase 23 (1)'s cases: (name, ``case(devices)``)."""
+    return [
+        ("PPOLearner over a data=1 mesh", parity_mesh_ppo),
+        ("DD-PPO worker step, 2 workers, cpu backend", parity_ddppo),
+        ("QMIXLearner, double Q", parity_qmix),
+        ("BC step", parity_offline("BC")),
+        ("MARWIL step", parity_offline("MARWIL")),
+        ("CQL step, (256, 256)", parity_offline("CQL")),
+    ]
+
+
+def _with_close(case):
+    """A phase 23 case as phase 22's ``rl_slice_parity`` takes it; its
+    clean-up (DD-PPO's workers leave their groups), if any, is kept."""
+    closers = []
+
+    def run(devices):
+        out = case(devices)
+        if len(out) == 5:
+            closers.append(out[4])
+        return out[:4]
+    return run, closers
+
+
+def timed(obj, name, clock):
+    """Wrap ``obj.name`` to add its host seconds and calls to ``clock``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            clock["s"] += time.perf_counter() - t0
+            clock["calls"] += 1
+    setattr(obj, name, wrapper)
+
+
+def gate_result(passed, measured, wall_s, updates, learn_s, env_steps=None):
+    return {"passed": passed, "measured": measured, "wall_s": wall_s,
+            "updates": updates, "updates_per_s": updates / wall_s,
+            "ms_per_update": 1e3 * learn_s / max(1, updates),
+            "env_steps_per_s": (None if env_steps is None
+                                else env_steps / wall_s)}
+
+
+def gate_multi_agent_ppo(device):
+    """``tests/test_rl.py:474-489``: independent PPO on the coordination
+    game, 25 iterations, final episode_reward_mean > 15."""
+    from ray_tpu_torch.rl import MultiAgentPPO
+    algo = (MultiAgentPPO.get_default_config()
+            .environment("CoordinationGame")
+            .training(train_batch_size=200, sgd_minibatch_size=50,
+                      num_sgd_iter=8, lr=3e-3, entropy_coeff=0.01)
+            .resources(device=device).debugging(seed=SEED).build())
+    clock = {"s": 0.0, "calls": 0}
+    for ln in algo.learner.values():
+        assert ln.device.type == torch.device(device).type
+        timed(ln, "train", clock)
+    t0 = time.perf_counter()
+    try:
+        for _ in range(25):
+            r = algo.train()
+    finally:
+        algo.stop()
+    wall = time.perf_counter() - t0
+    updates = sum(ln.opt_state["count"] for ln in algo.learner.values())
+    final = r["episode_reward_mean"]
+    return gate_result(final > 15.0, f"final {final:.3f}", wall, updates,
+                       clock["s"], r["timesteps_total"])
+
+
+def _offline_algo(cls, device, ds, iters, n_episodes, **training):
+    """``iters`` iterations of 64 updates, then the greedy evaluation. ->
+    (the last result, the evaluation, learning seconds, updates)."""
+    algo = (cls.get_default_config().environment("CartPole-v1")
+            .training(input_=ds, n_updates_per_iter=64, **training)
+            .resources(device=device).debugging(seed=SEED).build())
+    assert algo.learner.device.type == torch.device(device).type
+    t0 = time.perf_counter()
+    try:
+        for _ in range(iters):
+            r = algo.train()
+        learn = time.perf_counter() - t0
+        score = algo.evaluate(n_episodes=n_episodes)
+    finally:
+        algo.stop()
+    return r, score, learn, iters * 64
+
+
+def gate_bc(device):
+    """``tests/test_rl.py:554-570``: BC on 4000 expert steps, 10
+    iterations of 64 updates, evaluation (3 episodes) >= 300."""
+    from ray_tpu_torch.rl import BC
+    r, score, learn, updates = _offline_algo(BC, device, expert_dataset(),
+                                             10, 3)
+    return gate_result(score >= 300.0, f"evaluation {score:.1f}", learn,
+                       updates, learn)
+
+
+def gate_cql(device):
+    """``tests/test_rl.py:573-585``: CQL on the same data, 15 iterations,
+    penalty < 2 and evaluation (3 episodes) >= 300."""
+    from ray_tpu_torch.rl import CQL
+    r, score, learn, updates = _offline_algo(CQL, device, expert_dataset(),
+                                             15, 3, cql_alpha=1.0)
+    return gate_result(r["cql_penalty"] < 2.0 and score >= 300.0,
+                       f"penalty {r['cql_penalty']:.4f}, evaluation "
+                       f"{score:.1f}", learn, updates, learn)
+
+
+def gate_marwil(device):
+    """``tests/test_rl_extended.py:376-396``: BC and MARWIL on mixed
+    data, 12 iterations each, evaluation (5 episodes): MARWIL > 150 and
+    > BC + 30."""
+    from ray_tpu_torch.rl import BC, MARWIL
+    ds = mixed_dataset()
+    scores, learn = {}, 0.0
+    for cls in (BC, MARWIL):
+        algo = (cls.get_default_config().environment("CartPole-v1")
+                .training(input_=ds, n_updates_per_iter=64)
+                .resources(device=device).debugging(seed=SEED).build())
+        t0 = time.perf_counter()
+        try:
+            for _ in range(12):
+                algo.train()
+            learn += time.perf_counter() - t0
+            scores[cls.__name__] = algo.evaluate(n_episodes=5)
+        finally:
+            algo.stop()
+    m, b = scores["MARWIL"], scores["BC"]
+    return gate_result(m > 150.0 and m > b + 30.0,
+                       f"MARWIL {m:.1f}, BC {b:.1f}", learn, 2 * 12 * 64,
+                       learn)
+
+
+def gate_qmix(device):
+    """``tests/test_rl_extended.py:104-116``: QMIX on the two-step game,
+    seed 0, 90 iterations, greedy return (20 episodes) >= 7.9, from the
+    JAX package's seed-0 parameters (``qmix_jax_init``)."""
+    from ray_tpu_torch.rl import QMIX, TwoStepCooperativeGameEnv
+    algo = (QMIX.get_default_config()
+            .environment(lambda c: TwoStepCooperativeGameEnv(c))
+            .resources(device=device).debugging(seed=SEED).build())
+    learner = algo.learner
+    assert learner.device.type == torch.device(device).type
+    init = qmix_jax_init()
+    learner.set_state((init, init, None, 0))
+    clock = {"s": 0.0, "calls": 0}
+    timed(learner, "train", clock)
+    t0 = time.perf_counter()
+    for _ in range(90):
+        r = algo.train()
+    wall = time.perf_counter() - t0
+    reads = learner.act_reads / r["timesteps_total"]
+    greedy = algo.greedy_joint_return(20)
+    return gate_result(greedy >= 7.9, f"greedy return {greedy:.3f}, "
+                       f"{reads:.2f} device->host reads of act an env step",
+                       wall, learner.steps, clock["s"], r["timesteps_total"])
+
+
+def gate_ddppo(device):
+    """``tests/test_rl_extended.py:152-173``: DD-PPO on CartPole, 2
+    workers, 35 iterations, final > max(40, first + 10), the workers'
+    parameters bit-identical after."""
+    import ray_tpu_torch as rt
+    rt.init(num_cpus=8)
+    try:
+        algo = ddppo_gate_config(device).build()
+        rewards, learn = [], 0.0
+        t0 = time.perf_counter()
+        try:
+            for _ in range(35):
+                r = algo.train()
+                learn += r["learn_time_s"]
+                if "episode_reward_mean" in r:
+                    rewards.append(r["episode_reward_mean"])
+            wall = time.perf_counter() - t0
+            ws = rt.get([w.get_weights.remote() for w in algo._workers],
+                        timeout=60)
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    lockstep = all(np.array_equal(a, b) for a, b in zip(
+        rl_tree_leaves(ws[0]), rl_tree_leaves(ws[1])))
+    first, final = rewards[0], rewards[-1]
+    # each worker takes every step: updates are steps of the pair
+    return gate_result(final > max(40.0, first + 10) and lockstep,
+                       f"first {first:.2f}, final {final:.2f}, lockstep "
+                       f"{lockstep}", wall, 35 * 6, learn,
+                       r["timesteps_total"])
+
+
+# Phase 23 (2): name -> (the gate's function, its check), longest first.
+RL_MULTI_GATES = {
+    "DD-PPO, CartPole, 2 workers": (
+        gate_ddppo, "final > max(40, first + 10), lockstep"),
+    "QMIX, two-step game": (gate_qmix, "greedy return >= 7.9"),
+    "multi-agent PPO, coordination game": (gate_multi_agent_ppo,
+                                           "final > 15"),
+    "MARWIL against BC, mixed CartPole data": (
+        gate_marwil, "MARWIL > 150 and > BC + 30"),
+    "CQL, expert CartPole data": (gate_cql,
+                                  "penalty < 2, evaluation >= 300"),
+    "BC, expert CartPole data": (gate_bc, "evaluation >= 300"),
+}
+
+
+def run_multi_gate(name, device):
+    """Phase 23 (2), one gate in a process of its own: the learners on
+    ``device``, rollouts on one intra-op CPU thread."""
+    torch.set_num_threads(1)
+    return RL_MULTI_GATES[name][0](device)
+
+
+def ddppo_nccl(device, iters=DDPPO_NCCL_ITERS):
+    """Phase 23 (3): the DD-PPO gate's config with the ``nccl`` backend,
+    both workers folded onto ``device``, ``iters`` iterations under
+    ``init()``: every allreduce gets the flat gradient on the device and
+    is timed on the host clock between two synchronizes (the rendezvous
+    with the other worker included). -> (allreduce ms each, calls,
+    iteration seconds)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import collective as col
+    original = col.allreduce
+    times, sizes, lock = [], set(), threading.Lock()
+
+    def timed_allreduce(tensor, *args, **kwargs):
+        assert isinstance(tensor, torch.Tensor) and \
+            tensor.device.type == device.type, tensor
+        sync = torch.cuda.synchronize if device.type == "cuda" else (
+            lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = original(tensor, *args, **kwargs)
+        sync()
+        with lock:
+            times.append(time.perf_counter() - t0)
+            sizes.add(tensor.numel())
+        return out
+
+    col.allreduce = timed_allreduce
+    rt.init(num_cpus=8)
+    try:
+        algo = ddppo_gate_config(device, backend="nccl").build()
+        t0 = time.perf_counter()
+        try:
+            for _ in range(iters):
+                algo.train()
+            seconds = time.perf_counter() - t0
+            ws = rt.get([w.get_weights.remote() for w in algo._workers],
+                        timeout=60)
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+        col.allreduce = original
+    assert all(np.array_equal(a, b) for a, b in zip(
+        rl_tree_leaves(ws[0]), rl_tree_leaves(ws[1]))), "nccl lockstep"
+    assert len(times) == 2 * iters * 6 and len(sizes) == 1, (times, sizes)
+    return 1e3 * statistics.median(times), len(times), sizes.pop(), seconds
+
+
+def rl_multi_phase(fa, device, card):
+    """Phase 23: the mesh PPO learner, DD-PPO, multi-agent PPO, QMIX, BC,
+    MARWIL and CQL with their learners on the card. Returns nothing: no
+    flash kernel runs, and the launch counters must not move."""
+    t_phase = time.perf_counter()
+    # the process's one-time costs first: each case once on the card (the
+    # learners' kernels' code, a second NCCL world, the workers' threads'
+    # cuBLAS handles)
+    free_device_caches()
+    warm_before = torch.cuda.mem_get_info(device)[0]
+    for _, case in rl_multi_cases():
+        run, closers = _with_close(case)
+        run((device,))
+        for close in closers:
+            close()
+    free_device_caches()
+    warm = warm_before - torch.cuda.mem_get_info(device)[0]
+    free_before = torch.cuda.mem_get_info(device)[0]
+    counts = launch_counts(fa)
+
+    # (1) each new learner on the card against itself on the CPU
+    cases, closers = [], []
+    for name, case in rl_multi_cases():
+        run, closer = _with_close(case)
+        cases.append((name, run))
+        closers.append(closer)
+    parity = rl_slice_parity(device, cases)
+    for closer in closers:
+        for close in closer:
+            close()
+    for name, (p_err, m_err, moved, share), seconds, ms, _ in parity:
+        log(f"[rl-multi] (1) {name}: card against CPU (TF32 off), largest "
+            f"parameter difference {p_err:.3e} (the parameters moved up to "
+            f"{moved:.3e}: {share:.2e} of it), largest metric difference "
+            f"{m_err:.3e}, at rtol {RL_RTOL}, atol {RL_ATOL}; {seconds:.1f} "
+            f"s")
+        log(f"[times] {card}: {name}: {ms:.3f} ms an optimizer step on the "
+            f"card alone (host clock, {RL_TIMED_STEPS} steps or more)")
+    del parity, cases
+
+    # (2) the learning gates, learners on the card, RL_GATE_PROCESSES at a
+    # time, each in a spawned process
+    import multiprocessing
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(RL_GATE_PROCESSES) as pool:
+        gates = dict(zip(RL_MULTI_GATES, pool.starmap(
+            run_multi_gate, [(name, str(device)) for name in RL_MULTI_GATES],
+            chunksize=1)))
+        pool.close()
+        pool.join()
+    gates_s = time.perf_counter() - t0
+    for name, r in gates.items():
+        check = RL_MULTI_GATES[name][1]
+        assert r["passed"], (name, check, r)
+        rate = ("" if r["env_steps_per_s"] is None else
+                f"{r['env_steps_per_s']:.1f} env-steps/s, ")
+        log(f"[rl-multi] (2) {name}, learners on the card: {r['measured']}:"
+            f" the gate {check} holds; {r['wall_s']:.1f} s")
+        log(f"[times] {card}: {name}, {RL_GATE_PROCESSES} gates at a time: "
+            f"{rate}{r['updates_per_s']:.1f} updates/s ({r['updates']} "
+            f"updates, {r['ms_per_update']:.3f} ms each on the host clock)")
+    log(f"[rl-multi] (2) {len(gates)} gates in {gates_s:.1f} s, "
+        f"{RL_GATE_PROCESSES} processes at a time")
+
+    # (3) DD-PPO over the nccl backend, the two workers folded on the card
+    ms, calls, floats, seconds = ddppo_nccl(device)
+    log(f"[rl-multi] (3) DD-PPO, collective_backend='nccl', 2 workers folded"
+        f" on the card, {DDPPO_NCCL_ITERS} iterations in {seconds:.1f} s: "
+        f"the workers' parameters bit-identical; {calls} allreduces of the "
+        f"flat gradient on the card")
+    log(f"[times] {card}: DD-PPO nccl allreduce (2 ranks folded on one card,"
+        f" {floats} floats): {ms:.3f} ms median of {calls} on the host "
+        f"clock, the rendezvous included")
+
+    # (4) the card's memory is back, and no flash kernel ran
+    assert launch_counts(fa) == counts, (launch_counts(fa), counts)
+    free_after = None
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline:
+        free_device_caches()
+        free_after = torch.cuda.mem_get_info(device)[0]
+        if free_before - free_after <= PROCESS_MEMORY_SLACK:
+            break
+        time.sleep(0.2)
+    assert free_before - free_after <= PROCESS_MEMORY_SLACK, (
+        free_before, free_after)
+    log(f"[rl-multi] (4) the card's free memory {free_before} bytes before "
+        f"(1), {free_after} after (the one-time costs, {warm} bytes, paid "
+        f"before); the flash launch counters did not move; phase 23 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -4362,6 +5049,11 @@ def main() -> int:
     # 22. the memory models, IMPALA/APPO, DQN, SAC, TD3 and DDPG, each
     # learner on the card (no flash kernel runs)
     rl_slice_phase(fa, device, card)
+
+    # 23. the mesh PPO learner, DD-PPO, multi-agent PPO, QMIX, BC, MARWIL
+    # and CQL, each learner on the card (no flash kernel runs)
+    free_device_caches()
+    rl_multi_phase(fa, device, card)
 
     fwd_launches, dq_launches, dkv_launches = (
         a + b + c + d for a, b, c, d in zip(trained["launches"],

@@ -11,7 +11,9 @@ learner lives (``None``: ``cuda``, so ``build()`` raises without a card
 unless ``device="cpu"`` is given), and every rollout worker's policy acts
 on the CPU, local and remote alike (the reference's design: CPU rollout
 actors feeding the learner). Remote workers are CPU actors with no GPU
-grant.
+grant. ``resources(mesh=...)`` (a ``parallel.Mesh``) puts a PPO learner
+on every rank of the mesh: the device is then the mesh's (this rank's card,
+or the CPU of a gloo mesh), and ``device=`` may only name the same.
 """
 
 from __future__ import annotations
@@ -22,10 +24,30 @@ import time
 from typing import Any, Dict, List, Optional, Type
 
 import numpy as np
+import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rl.rollout_worker import WorkerSet
 from ray_tpu_torch.tune.trainable import Trainable
+
+
+def learner_device(device=None, mesh=None) -> torch.device:
+    """Where a learner lives: ``device`` (``None``: ``cuda``, raising
+    without a card), or on a mesh this rank's device: its card (the
+    current CUDA device, which ``parallel.run_spmd`` sets per rank) or the
+    CPU of a gloo mesh. Raises if ``device`` names another than the
+    mesh's."""
+    if mesh is None:
+        return resolve_device(device)
+    own = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    if device is not None:
+        asked = torch.device(device)
+        if asked.type != own.type or asked.index not in (None, own.index):
+            raise ValueError(f"device {asked} given for a learner on a mesh "
+                             f"of {mesh.device_type}: this rank's device is "
+                             f"{own}")
+    return own
 
 
 class AlgorithmConfig:
@@ -48,8 +70,8 @@ class AlgorithmConfig:
         self.model: Dict[str, Any] = {}
         self.seed = 0
         # framework/resources()
-        self.mesh = None  # a mesh learner is not ported yet (NotImplemented)
-        self.device = None  # the learner's device; None: cuda
+        self.mesh = None  # optional parallel.Mesh for the (PPO) learner
+        self.device = None  # the learner's device; None: cuda (or the mesh's)
         self.extra: Dict[str, Any] = {}
 
     def environment(self, env=None, env_config: Optional[dict] = None
@@ -143,7 +165,7 @@ class Algorithm(Trainable):
             raise ValueError("AlgorithmConfig.environment(env=...) not set")
         # The learner's device first, so that build() without a card raises
         # before any rollout worker starts.
-        self.device = resolve_device(cfg.device)
+        self.device = learner_device(cfg.device, cfg.mesh)
         self.workers = self._make_worker_set()
         self.learner = self._make_learner()
 

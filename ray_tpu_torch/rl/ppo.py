@@ -15,6 +15,19 @@ of the metrics. Each epoch's permutation comes from a ``torch.Generator``
 on the learner's device, seeded ``seed + 7919`` as the JAX key is. The
 optimizer is ``optax.chain(clip_by_global_norm(grad_clip), adam(lr))``
 written on the tree with optax's arithmetic (``clip_adam_step_``).
+
+On a mesh (``PPOLearner(mesh=)``, ``resources(mesh=)``) the learner is SPMD
+in the torch way: every rank of the ``torch.distributed`` world runs the
+same algorithm from the same seed, so all hold the same host batch and
+draw the same permutations. Parameters and Adam moments are replicated
+(the same tensors on every rank); each minibatch's rows are split over the
+mesh axes that ``batch_sharding(mesh, ndim=1)`` shards (``("data",
+"fsdp")``), each rank's loss is scaled by its share of the rows, and the
+gradient and metrics are summed over those axes (one ``all_reduce`` a
+minibatch per axis) before the same clip+Adam step everywhere. A
+minibatch that does not split evenly still gives the one-device result;
+the JAX package's jitted schedule, where XLA inserts the psum, has no
+divisibility rule either.
 """
 
 from __future__ import annotations
@@ -23,10 +36,11 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rl import models as _models
-from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rl.algorithm import (Algorithm, AlgorithmConfig,
+                                        learner_device)
 from ray_tpu_torch.rl.postprocessing import standardize
 from ray_tpu_torch.rl.rollout_worker import synchronous_parallel_sample
 from ray_tpu_torch.rl.sample_batch import SampleBatch, batch_to_device
@@ -88,16 +102,12 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor],
 
 
 @torch.no_grad()
-def clip_adam_step_(leaves: Sequence[torch.Tensor],
-                    grads: Sequence[torch.Tensor], opt_state: Dict[str, Any],
-                    max_norm: float, lr: float) -> None:
-    """One ``optax.chain(clip_by_global_norm(max_norm), adam(lr))`` update,
-    in place on ``leaves`` and ``opt_state``.
-
-    Adam: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias correction computed
-    in float32 as optax does.
-    """
-    grads = clip_by_global_norm(grads, max_norm)
+def adam_step_(leaves: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               opt_state: Dict[str, Any], lr: float) -> None:
+    """One ``optax.adam(lr)`` update, in place on ``leaves`` and
+    ``opt_state``: b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias correction
+    computed in float32 as optax does."""
+    grads = list(grads)
     mu = _models.tree_leaves(opt_state["mu"])
     nu = _models.tree_leaves(opt_state["nu"])
     torch._foreach_mul_(mu, ADAM_B1)
@@ -117,17 +127,58 @@ def clip_adam_step_(leaves: Sequence[torch.Tensor],
     torch._foreach_add_(list(leaves), update, alpha=-lr)
 
 
+@torch.no_grad()
+def clip_adam_step_(leaves: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor], opt_state: Dict[str, Any],
+                    max_norm: float, lr: float) -> None:
+    """One ``optax.chain(clip_by_global_norm(max_norm), adam(lr))`` update,
+    in place on ``leaves`` and ``opt_state`` (``adam_step_`` on the clipped
+    gradients)."""
+    adam_step_(leaves, clip_by_global_norm(grads, max_norm), opt_state, lr)
+
+
+class _RowShare:
+    """This rank's part of each minibatch on a mesh: the mesh axes that
+    ``batch_sharding(mesh, ndim=1)`` shards the rows over, this rank's
+    index among their ``count`` blocks (outermost axis first, as
+    ``place_local`` lays them out), and a sum over them."""
+
+    def __init__(self, mesh):
+        from torch.distributed.tensor import Shard
+
+        from ray_tpu_torch.parallel.sharding import batch_sharding
+        placements = batch_sharding(mesh, ndim=1)
+        self.mesh = mesh
+        self.axes = [a for a, p in zip(mesh.axis_names, placements)
+                     if isinstance(p, Shard) and mesh.shape[a] > 1]
+        self.index, self.count = 0, 1
+        for a in self.axes:
+            self.index = self.index * mesh.shape[a] + mesh.axis_index(a)
+            self.count *= mesh.shape[a]
+
+    def rows(self, n: int):
+        """This rank's ``[start, stop)`` of ``n`` rows: ``count`` blocks as
+        even as they come (``torch.tensor_split``'s), so that an even split
+        is ``place_local``'s."""
+        q, r = divmod(n, self.count)
+        start = self.index * q + min(self.index, r)
+        return start, start + q + (self.index < r)
+
+    def sum_(self, flat: torch.Tensor) -> None:
+        for a in self.axes:
+            dist.all_reduce(flat, group=self.mesh.group(a))
+
+
 class PPOLearner:
-    """The PPO update on one device. Holds (params, opt_state) there."""
+    """The PPO update on one device, or replicated over a mesh's ranks.
+    Holds (params, opt_state) there."""
 
     def __init__(self, init_params, cfg: PPOConfig, continuous: bool,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a PPO learner over a mesh is not ported yet (ROADMAP Queue "
-                "1: rl/, the mesh learner and DD-PPO)")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = learner_device(device, mesh)
+        self._share = None if mesh is None else _RowShare(mesh)
         self._continuous = continuous
         self.minibatch = cfg.sgd_minibatch_size   # rows of the batch's dim 0
         self.set_state((init_params, None))
@@ -142,6 +193,30 @@ class PPOLearner:
         return _models.ppo_surrogate_loss(dist, values, batch, self.cfg,
                                           kl_coeff)
 
+    def _grads(self, kl_coeff, minibatch, leaves):
+        """(gradients, the stacked ``AUX_KEYS``) of one minibatch: of the
+        whole of it on one device; on a mesh, of this rank's rows with the
+        loss scaled by their share, summed over the batch axes."""
+        if self._share is None:
+            loss, aux = self._loss(kl_coeff, minibatch)
+            grads = torch.autograd.grad(loss, leaves)
+            return grads, torch.stack([aux[k].detach() for k in AUX_KEYS])
+        mb = minibatch[SampleBatch.OBS].shape[0]
+        start, stop = self._share.rows(mb)
+        if stop > start:
+            loss, aux = self._loss(kl_coeff, {k: v[start:stop] for k, v
+                                              in minibatch.items()})
+            scale = (stop - start) / mb
+            grads = torch.autograd.grad(loss * scale, leaves)
+            aux = torch.stack([aux[k].detach() for k in AUX_KEYS]) * scale
+        else:   # fewer rows than ranks: this rank adds nothing
+            grads = [torch.zeros_like(t) for t in leaves]
+            aux = torch.zeros(len(AUX_KEYS), device=self.device)
+        flat = torch.cat([g.reshape(-1) for g in grads] + [aux])
+        self._share.sum_(flat)
+        parts = flat.split([t.numel() for t in leaves] + [len(AUX_KEYS)])
+        return ([p.view_as(t) for p, t in zip(parts, leaves)], parts[-1])
+
     def sgd(self, batch: Dict[str, torch.Tensor], kl_coeff: float,
             perms: Sequence[torch.Tensor]) -> Dict[str, float]:
         """The whole schedule on a batch already on the device: for each
@@ -149,7 +224,8 @@ class PPOLearner:
         mb]`` in order (the remainder is dropped), each one clip+Adam step,
         ``mb`` being ``self.minibatch``. The metrics are the mean over
         every minibatch of every epoch, and ``kl`` the mean of the last
-        epoch's (``lax.scan``'s outputs in the JAX package)."""
+        epoch's (``lax.scan``'s outputs in the JAX package). On a mesh,
+        every rank passes the whole batch and the same permutations."""
         mb = self.minibatch
         n = batch[SampleBatch.OBS].shape[0]
         num_mb = max(1, n // mb)
@@ -160,11 +236,10 @@ class PPOLearner:
             for i in range(num_mb):
                 minibatch = {k: v[i * mb:(i + 1) * mb]
                              for k, v in shuffled.items()}
-                loss, aux = self._loss(kl_coeff, minibatch)
-                grads = torch.autograd.grad(loss, leaves)
+                grads, aux = self._grads(kl_coeff, minibatch, leaves)
                 clip_adam_step_(leaves, grads, self.opt_state,
                                 self.cfg.grad_clip, self.cfg.lr)
-                auxs.append(torch.stack([aux[k].detach() for k in AUX_KEYS]))
+                auxs.append(aux)
         stacked = torch.stack(auxs).view(len(perms), num_mb, len(AUX_KEYS))
         last_kl = stacked[-1, :, AUX_KEYS.index("kl")].mean()
         values = torch.cat([stacked.mean(dim=(0, 1)), last_kl[None]]).tolist()

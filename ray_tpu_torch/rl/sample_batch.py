@@ -93,13 +93,27 @@ def concat_samples(batches: List[SampleBatch]) -> SampleBatch:
         k: np.concatenate([b[k] for b in batches]) for k in keys})
 
 
-def batch_to_device(batch: SampleBatch, device) -> Dict[str, torch.Tensor]:
+def batch_to_device(batch: SampleBatch, device,
+                    sharding=None) -> Dict[str, torch.Tensor]:
     """The whole batch on ``device``: one host->device copy per column,
     from pinned memory when the device is a card. Float64 columns become
     float32 on the host first, as under JAX's default (no x64); integer
-    columns keep their width. The JAX package's ``sharding=`` (a placement
-    over a mesh) is not ported yet (ROADMAP Queue 1: the mesh learner)."""
+    columns keep their width.
+
+    ``sharding``: a ``(mesh, placements)`` pair (the convention of
+    ``data.Dataset.iter_device_batches``), e.g. ``(mesh,
+    batch_sharding(mesh, ndim=1))``. Every rank holds the whole host batch
+    (an SPMD program from one seed), and each column becomes this rank's
+    ``DTensor`` of it (``parallel.sharding.place_local``): the rows split
+    evenly over the sharded mesh axes, or it raises. The mesh must live on
+    ``device``'s type."""
     device = torch.device(device)
+    mesh, placements = sharding if sharding is not None else (None, None)
+    if mesh is not None:
+        if mesh.device_type != device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the batch "
+                             f"on {device}")
+        from ray_tpu_torch.parallel.sharding import place_local
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
@@ -110,5 +124,5 @@ def batch_to_device(batch: SampleBatch, device) -> Dict[str, torch.Tensor]:
             t = t.pin_memory().to(device, non_blocking=True)
         elif device != t.device:
             t = t.to(device)
-        out[k] = t
+        out[k] = t if mesh is None else place_local(t, mesh, placements)
     return out

@@ -11,6 +11,7 @@ that both learners see the same minibatches.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -265,10 +266,15 @@ def test_learner_state_round_trips_through_numpy():
 
 
 def test_a_mesh_learner_is_not_ported_yet():
+    """The mesh learner is ported now (``tests/test_torch_rl_mesh.py``
+    holds it against JAX's); what stays here: its device is the mesh's,
+    and a ``device=`` that names another is refused before anything is
+    built."""
     _, tcfg = cfg_pair()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PPOLearner(jax_params("discrete"), tcfg, False, mesh=object(),
-                   device="cpu")
+    gloo_mesh = types.SimpleNamespace(device_type="cpu")
+    with pytest.raises(ValueError, match="this rank's device is cpu"):
+        PPOLearner(jax_params("discrete"), tcfg, False, mesh=gloo_mesh,
+                   device="cuda")
 
 
 def test_batch_to_device_casts_float64_and_keeps_integers():
