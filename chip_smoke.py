@@ -258,8 +258,8 @@ Phases, each of which asserts:
    CPU: (1) one update of each on the card against the same learner on the
    CPU, the same weights, batch and fed permutations, at
    ``RL_RTOL``/``RL_ATOL`` (phase 21's PPO schedule by the learner over a
-   ``data=1`` mesh of an NCCL world of one, held also against the
-   one-device learner on the card; a DD-PPO step of the gate's two workers,
+   ``data=1`` mesh of an NCCL world of one, held also bit for bit
+   (``torch.equal``) against the one-device learner on the card; a DD-PPO step of the gate's two workers,
    each on its own thread and 400-step batch; ``QMIXLearner`` on 128
    replayed joint transitions; the BC, MARWIL and CQL steps at their gates'
    shapes), the largest differences printed, then each card learner alone
@@ -274,7 +274,32 @@ Phases, each of which asserts:
    card, 2 iterations: lockstep, and the allreduce's host ms; (4) the
    card's free memory back within 64 MiB of its value before (1) (each case
    run once on the card before the baseline, and what that took printed),
-   and the flash kernels' launch counters unmoved.
+   and the flash kernels' launch counters unmoved;
+24. the leaf libraries and the autoscaler, each driving phase 5's model
+   (f32, weights from its seed) on the card; an answer is the argmax of a
+   request's last-token logits, the request alone at its length bucket, and
+   each must equal the direct answers made here (the kernels line counts
+   every forward launch, in whichever process it ran): (a) ``workflow``: pad
+   on the host, a ``num_gpus=1`` step that builds the model and returns the
+   answers as a CUDA tensor, and a reducer that fails on its first run: the
+   run ends FAILED, ``resume`` answers without a forward launch, and
+   ``get_output`` in a process with ``CUDA_VISIBLE_DEVICES=""`` returns the
+   same values as a CPU tensor; (c) ``Pool(2, ray_remote_args={"num_gpus":
+   0.5}).map`` and, where ``joblib`` imports, its backend; (b) a
+   ``ClientServer`` here and a Ray Client in a process without a card that
+   makes a ``num_gpus=1`` actor holding a ``TorchPredictor``: the requests
+   from 1 thread and from 4, each answer a CPU tensor, requests/s beside
+   the direct rates; (e) while that actor lives, ``list_actors`` and
+   ``list_nodes`` show it and its node's GPU granted, and
+   ``summarize_tasks`` counted (c)'s tasks; (d) ``JobManager``: a job
+   running ``entry()``'s forward logs a checksum equal to this process's,
+   and a job holding 1 GiB of the card ends STOPPED by ``stop_job`` with the
+   card's free memory back within 64 MiB; (f) a ``StandardAutoscaler`` over
+   a ``ProcessCluster`` whose daemon owns no card: a ``num_gpus=1`` task
+   makes ``update()`` start a GPU daemon, the task's answers come back
+   equal, and once idle the daemon is terminated and the card's memory
+   comes back; seconds from the demand to the daemon registered, to the
+   answer and to the scale-down.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -405,6 +430,13 @@ DDPPO_NCCL_ITERS = 2       # (3) DD-PPO iterations over the nccl backend
 REPO = pathlib.Path(__file__).resolve().parent
 # (2) QMIX's gate starts from the JAX package's seed-0 parameters
 QMIX_JAX_INIT = REPO / "tests" / "data" / "qmix_two_step_jax_init.npz"
+# Phase 24: the leaf libraries and the autoscaler.
+LEAF_DIR = "build/leaf"          # workflow storage and job logs
+CLIENT_THREADS = 4               # (b) the client's second pass
+POOL_CHUNKSIZE = 2               # (c) requests per Pool task
+JOB_HOLD_BYTES = 2**30           # (d) what the second job holds on the card
+AUTOSCALE_IDLE_S = 2.0           # (f) idle seconds before scale-down
+SUBPROCESS_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -4279,8 +4311,9 @@ def world_of_one(device):
 def parity_mesh_ppo(devices):
     """One ``sgd`` of phase 21's schedule (8 epochs x 3 minibatches of
     256) by the CPU learner and, on the card, by the learner over a
-    ``data=1`` mesh of a world of one, held also against the one-device
-    learner on the card (it runs no collective at size 1)."""
+    ``data=1`` mesh of a world of one, held also bit for bit against the
+    one-device learner on the card (it runs no collective at size 1, so it
+    takes the one-device path)."""
     from ray_tpu_torch.parallel import MeshConfig, build_mesh
     from ray_tpu_torch.rl import RolloutWorker
     from ray_tpu_torch.rl.postprocessing import standardize
@@ -4319,24 +4352,16 @@ def parity_mesh_ppo(devices):
         metrics = schedule(learner)
         single = PPOLearner(weights, cfg, False, device=learner.device)
         single_metrics = schedule(single)
-        p_err = 0.0
-        for a, b in zip(rl_tree_leaves(learner.get_weights()),
-                        rl_tree_leaves(single.get_weights())):
-            np.testing.assert_allclose(a, b, rtol=RL_RTOL, atol=RL_ATOL)
-            p_err = max(p_err, float(np.abs(a - b).max()))
-        m_err = max(abs(metrics[k] - single_metrics[k]) for k in metrics)
-        np.testing.assert_allclose([metrics[k] for k in metrics],
-                                   [single_metrics[k] for k in metrics],
-                                   rtol=RL_RTOL, atol=RL_ATOL)
-        again = PPOLearner(weights, cfg, False, device=learner.device)
-        schedule(again)
-        self_err = max(float(np.abs(a - b).max()) for a, b in zip(
-            rl_tree_leaves(again.get_weights()),
-            rl_tree_leaves(single.get_weights())))
-        log(f"[rl-multi] (1) the data=1 mesh learner against the one-device "
-            f"learner, both on {dev}: largest parameter difference "
-            f"{p_err:.3e}, metric {m_err:.3e}; two runs of the one-device "
-            f"learner differ by {self_err:.3e}")
+        # A data=1 mesh runs no collective, so it takes the one-device
+        # update: bit-equal parameters and metrics.
+        leaves = list(zip(rl_tree_leaves(learner.params),
+                          rl_tree_leaves(single.params)))
+        assert leaves and all(torch.equal(a, b) for a, b in leaves), (
+            "the data=1 mesh learner differs from the one-device learner")
+        assert metrics == single_metrics, (metrics, single_metrics)
+        log(f"[rl-multi] (1) the data=1 mesh learner equals the one-device "
+            f"learner on {dev} bit for bit: {len(leaves)} parameters "
+            f"(torch.equal) and {len(metrics)} metrics")
         out[dev.type] = (learner.get_weights(), metrics)
     return (out, weights, lambda: schedule(learner),
             cfg.num_sgd_iter * (n // cfg.sgd_minibatch_size))
@@ -4846,6 +4871,599 @@ def rl_multi_phase(fa, device, card):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 24: the leaf libraries and the autoscaler --------------------------
+
+
+def lm_answers(cfg, params, requests):
+    """Phase 24's answer to each request: the argmax of its last-token
+    logits, the request alone and right-padded to its length bucket; one
+    int64 tensor on the weights' device."""
+    return padded_answers(cfg, params, wf_pad(requests))
+
+
+def padded_answers(cfg, params, padded):
+    """``lm_answers`` of requests already padded one by one."""
+    from ray_tpu_torch.models import transformer
+    device = next(iter(transformer.leaves(params))).device
+    out = []
+    with torch.inference_mode():
+        for batch in padded:
+            batch = {k: torch.as_tensor(v, device=device)
+                     for k, v in batch.items()}
+            out.append(last_token_logits(cfg, params, batch).argmax(-1))
+    return torch.cat(out)
+
+
+def seeded_lm(device, width):
+    """Phase 5's f32 model from its seed on ``device``: (config, params)."""
+    return serve_inputs(device, width, 0)[3:]
+
+
+def granted_device(device_type):
+    """The card this task or actor was granted (the CPU when the phase is
+    rehearsed there)."""
+    import ray_tpu_torch
+    if device_type != "cuda":
+        return torch.device("cpu")
+    (device,) = ray_tpu_torch.get_runtime_context().get_gpu_devices()
+    return device
+
+
+def no_tf32():
+    """TF32 off in this process, as in the script's. Imported here: a
+    ``torch.backends`` submodule named through the global ``torch`` would
+    make the caller unpicklable by value."""
+    from torch.backends import cudnn
+    from torch.backends.cuda import matmul
+    matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+
+
+def wf_pad(requests):
+    """(a) step 1, on the host: each request padded to its bucket."""
+    return [pad_requests([r]) for r in requests]
+
+
+def wf_forward(padded, width, device_type):
+    """(a) step 2: the model from its seed on the card; each request's
+    answer, one CUDA tensor."""
+    cfg, params = seeded_lm(granted_device(device_type), width)
+    return padded_answers(cfg, params, padded)
+
+
+def wf_reduce(answers, marker):
+    """(a) step 3: fails on its first run (which leaves ``marker``), then
+    passes the answers on with their count."""
+    import os
+    if not os.path.exists(marker):
+        with open(marker, "w") as f:
+            f.write("failed once\n")
+        raise RuntimeError("the reducer's first run fails")
+    return {"answers": answers, "n": int(answers.numel())}
+
+
+def read_workflow_output(base, workflow_id):
+    """(a) in a process without a card: the stored output, printed as a
+    JSON line."""
+    from ray_tpu_torch import workflow
+    workflow.init(storage_base_dir=base)
+    out = workflow.get_output(workflow_id)
+    t = out["answers"]
+    print("WORKFLOW_OUTPUT " + json.dumps({
+        "type": type(t).__name__, "device": str(t.device),
+        "cuda_available": torch.cuda.is_available(),
+        "values": t.tolist(), "n": out["n"]}), flush=True)
+
+
+class ClientLM:
+    """User code for phase 24 (b): phase 5's model from its seed in a
+    ``num_gpus=1`` actor made by a Ray Client; each answer a tensor on the
+    granted card."""
+
+    def __init__(self, width, device_type):
+        import ray_tpu_torch
+        from ray_tpu_torch.air import TorchPredictor
+        no_tf32()
+        self.granted = ray_tpu_torch.get_runtime_context().get_gpu_devices()
+        device = granted_device(device_type)
+        cfg, params = seeded_lm(device, width)
+        self.cfg = cfg
+        self.predictor = TorchPredictor(
+            params, functools.partial(last_token_logits, cfg), device=device)
+
+    def devices(self):
+        return [str(d) for d in self.granted]
+
+    def answer(self, request):
+        return lm_answers(self.cfg, self.predictor.params, [request])
+
+
+def client_main(port, width, device_type):
+    """(b) the client process (no card): make the actor, send the requests
+    from one thread and from ``CLIENT_THREADS``, print one JSON line, then
+    hold the actor until a line arrives on stdin."""
+    import concurrent.futures
+
+    import cloudpickle
+
+    from ray_tpu_torch.util.client import connect
+    # this module's classes and functions go by value: the server's
+    # process runs the script as __main__
+    cloudpickle.register_pickle_by_value(sys.modules[__name__])
+    api = connect(f"127.0.0.1:{port}")
+    _, _, requests = seeded_requests(width, N_REQUESTS)
+    t0 = time.perf_counter()
+    lm = api.remote(ClientLM, num_gpus=1,
+                    max_concurrency=CLIENT_THREADS).remote(width, device_type)
+    devices = api.get(lm.devices.remote(), timeout=SUBPROCESS_TIMEOUT_S)
+    ready_s = time.perf_counter() - t0
+    api.get(lm.answer.remote(requests[0]), timeout=SUBPROCESS_TIMEOUT_S)
+    t0 = time.perf_counter()
+    one = [api.get(lm.answer.remote(r), timeout=SUBPROCESS_TIMEOUT_S)
+           for r in requests]
+    one_s = time.perf_counter() - t0
+
+    def ask(r):
+        return api.get(lm.answer.remote(r), timeout=SUBPROCESS_TIMEOUT_S)
+
+    with concurrent.futures.ThreadPoolExecutor(CLIENT_THREADS) as ex:
+        # a first pass warms the actor's threads (each thread's first
+        # matmul makes its cuBLAS handles), then the measured one
+        t0 = time.perf_counter()
+        list(ex.map(ask, requests))
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        many = list(ex.map(ask, requests))
+        many_s = time.perf_counter() - t0
+    print("CLIENT " + json.dumps({
+        "devices": devices, "cuda_available": torch.cuda.is_available(),
+        "types": sorted({type(a).__name__ for a in one + many}),
+        "answer_devices": sorted({str(a.device) for a in one + many}),
+        "one": torch.cat(one).tolist(), "many": torch.cat(many).tolist(),
+        "ready_s": ready_s, "one_s": one_s, "first_s": first_s,
+        "many_s": many_s}), flush=True)
+    sys.stdin.readline()
+    api.kill(lm)
+    api.disconnect()
+
+
+def run_python(code, env=None, timeout_s=SUBPROCESS_TIMEOUT_S):
+    """``python -c code`` from the repository's root; its stdout."""
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=timeout_s)
+    assert out.returncode == 0, (out.returncode, out.stdout[-3000:],
+                                 out.stderr[-3000:])
+    return out.stdout
+
+
+def no_card_env():
+    import os
+    return dict(os.environ, CUDA_VISIBLE_DEVICES="")
+
+
+def json_line(text, tag):
+    lines = [ln for ln in text.splitlines() if ln.startswith(tag + " ")]
+    assert len(lines) == 1, (tag, text[-3000:])
+    return json.loads(lines[0][len(tag) + 1:])
+
+
+def wait_free_memory(device, free_before, timeout_s=30.0):
+    """The card's free memory once it is back within
+    ``PROCESS_MEMORY_SLACK`` of ``free_before``; fails after
+    ``timeout_s``."""
+    free_after = None
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        free_device_caches()
+        free_after = torch.cuda.mem_get_info(device)[0]
+        if free_before - free_after <= PROCESS_MEMORY_SLACK:
+            break
+        time.sleep(0.2)
+    assert free_before - free_after <= PROCESS_MEMORY_SLACK, (
+        free_before, free_after)
+    return free_after
+
+
+def leaf_phase(fa, device, card, direct_rps, width=SERVE_WIDTH,
+               autoscale_type=None, autoscale_task=None):
+    """Phase 24: the leaf libraries (workflow, Ray Client, Pool and joblib,
+    jobs, the state API) and the autoscaler, each driving phase 5's model
+    on the card. ``autoscale_type`` and ``autoscale_task``: the node type
+    (f) launches and the task's resources (default: one GPU). Returns the
+    flash forward kernel's launches, counted in every process."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    root = REPO / LEAF_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    _, lengths, requests = seeded_requests(width, N_REQUESTS)
+    n_layers = width["n_layers"]
+    per_pass = n_layers * len(requests)
+    free_device_caches()
+
+    # the direct answers: phase 5's model from its seed, each request alone
+    cfg, params = seeded_lm(device, width)
+    lm_answers(cfg, params, requests[:1])
+    fa.launches = 0
+    t0 = time.perf_counter()
+    want = lm_answers(cfg, params, requests)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    assert fa.launches == per_pass, (fa.launches, per_pass)
+    launches = fa.launches
+    log(f"[leaf] {transformer.num_params(params) / 1e6:.1f} M parameters; "
+        f"the direct answers: {len(requests)} requests alone, f32, "
+        f"{per_pass} forward launches, {len(requests) / direct_s:.2f} "
+        f"requests/s")
+
+    config = {k: str(REPO / v) for k, v in RUNTIME_CONFIG.items()}
+    rt.init(num_cpus=8, _system_config=config)
+    try:
+        assert rt.cluster_resources().get("GPU") == torch.cuda.device_count()
+        launches += workflow_step(rt, fa, device, card, want, root, width,
+                                  per_pass)
+        launches += pool_step(rt, fa, cfg, params, requests, want, per_pass)
+        launches += client_step(rt, fa, card, want, width, direct_rps,
+                                len(requests) / direct_s, device)
+    finally:
+        rt.shutdown()
+    del params
+    launches += job_step(device, root)
+    launches += autoscaler_step(rt, fa, device, card, want, width,
+                                autoscale_type, autoscale_task)
+    log(f"[leaf] phase 24 in {time.perf_counter() - t_phase:.1f} s; "
+        f"{launches} forward launches in all its processes")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def workflow_step(rt, fa, device, card, want, root, width, per_pass):
+    """(a) a workflow whose reducer fails; resume; a reader without a
+    card."""
+    from ray_tpu_torch import workflow
+    base, marker = str(root / "workflows"), str(root / "reducer-failed")
+    workflow.init(storage_base_dir=base)
+    _, _, requests = seeded_requests(width, N_REQUESTS)
+    pad, fwd, red = (rt.remote(wf_pad), rt.remote(num_gpus=1)(wf_forward),
+                     rt.remote(wf_reduce))
+    dag = red.bind(fwd.bind(pad.bind(requests), width, device.type), marker)
+    fa.launches = 0
+    t0 = time.perf_counter()
+    try:
+        workflow.run(dag, workflow_id="lm")
+    except workflow.WorkflowExecutionError as e:
+        failed = str(e.cause).splitlines()[0][:80]
+    else:
+        raise AssertionError("the reducer's first run did not fail")
+    run_s = time.perf_counter() - t0
+    assert workflow.get_status("lm") == "FAILED"
+    assert fa.launches == per_pass, (fa.launches, per_pass)
+    stored = sorted(workflow.WorkflowStorage("lm", base).list_task_results())
+    assert stored == ["0000_wf_pad", "0001_wf_forward"], stored
+    before = fa.launches
+    t0 = time.perf_counter()
+    out = workflow.resume("lm")
+    resume_s = time.perf_counter() - t0
+    assert fa.launches == before, "the resume ran the forward again"
+    assert workflow.get_status("lm") == "SUCCESS"
+    got = out["answers"]
+    assert got.device.type == device.type and torch.equal(got, want), (
+        got, want)
+    assert out["n"] == len(requests)
+    log(f"[leaf] (a) workflow: pad (host), a num_gpus=1 forward (the model "
+        f"from its seed, {per_pass} launches), a reducer: the run ended "
+        f"FAILED ({failed}) with {stored} stored; resume() answered on "
+        f"{got.device}, equal to the direct answers, without a forward "
+        f"launch")
+    t0 = time.perf_counter()
+    seen = json_line(run_python(
+        "import chip_smoke; chip_smoke.read_workflow_output("
+        f"{base!r}, 'lm')", env=no_card_env()), "WORKFLOW_OUTPUT")
+    read_s = time.perf_counter() - t0
+    assert seen["type"] == "Tensor" and seen["device"] == "cpu", seen
+    assert not seen["cuda_available"], seen
+    assert seen["values"] == want.tolist() and seen["n"] == len(requests)
+    log(f"[leaf] (a) get_output in a process with CUDA_VISIBLE_DEVICES=\"\":"
+        f" a CPU tensor of the same {len(requests)} values")
+    log(f"[times] {card}: workflow run to the failure {run_s:.3f} s, "
+        f"resume {resume_s:.3f} s, the reader process {read_s:.2f} s (host "
+        f"clock)")
+    return fa.launches
+
+
+def pool_step(rt, fa, cfg, params, requests, want, per_pass):
+    """(c) ``Pool`` with half a GPU a task, then the joblib backend."""
+    from ray_tpu_torch.experimental import state
+    from ray_tpu_torch.util.multiprocessing import Pool
+
+    answer = functools.partial(lm_answers, cfg, params)
+
+    def one(r):
+        return answer([r])
+
+    finished = state.summarize_tasks()["by_state"].get("FINISHED", 0)
+    fa.launches = 0
+    t0 = time.perf_counter()
+    with Pool(2, ray_remote_args={"num_gpus": 0.5}) as pool:
+        got = pool.map(one, requests, chunksize=POOL_CHUNKSIZE)
+    pool_s = time.perf_counter() - t0
+    got = torch.cat(got)
+    assert torch.equal(got, want), (got, want)
+    assert fa.launches == per_pass, (fa.launches, per_pass)
+    n_chunks = math.ceil(len(requests) / POOL_CHUNKSIZE)
+    counted = state.summarize_tasks()["by_state"].get("FINISHED", 0)
+    assert counted - finished == n_chunks, (counted, finished, n_chunks)
+    launches = fa.launches
+    log(f"[leaf] (c) Pool(2, ray_remote_args={{'num_gpus': 0.5}}).map: "
+        f"{len(requests)} answers in {n_chunks} tasks, equal to the direct "
+        f"answers; {per_pass} forward launches; summarize_tasks counted "
+        f"{counted - finished} more FINISHED tasks; {pool_s:.3f} s")
+    try:
+        import joblib
+    except ImportError:
+        log("[leaf] (c) joblib is not installed here: its backend was not "
+            "run")
+        return launches
+    from ray_tpu_torch.util.joblib import register_ray_tpu
+    register_ray_tpu()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    with joblib.parallel_backend("ray_tpu", n_jobs=2):
+        got = joblib.Parallel()(joblib.delayed(one)(r) for r in requests)
+    job_s = time.perf_counter() - t0
+    assert torch.equal(torch.cat(got), want)
+    assert fa.launches == per_pass, (fa.launches, per_pass)
+    log(f"[leaf] (c) joblib {joblib.__version__}, backend 'ray_tpu', "
+        f"n_jobs=2: the same answers, {per_pass} forward launches; "
+        f"{job_s:.3f} s")
+    return launches + fa.launches
+
+
+def client_step(rt, fa, card, want, width, direct_rps, direct_f32_rps,
+                device):
+    """(b) a Ray Client in a process without a card drives a ``num_gpus=1``
+    actor here; (e) the state API while the actor lives."""
+    from ray_tpu_torch.experimental import state
+    from ray_tpu_torch.util.client.server import ClientServer
+    server = ClientServer(port=0)
+    fa.launches = 0
+    err_path = REPO / LEAF_DIR / "client.err"
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.client_main("
+             f"{server.port}, {width!r}, {device.type!r})"],
+            cwd=str(REPO), env=no_card_env(), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=err_file, text=True)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("CLIENT "):
+                break
+        assert lines and lines[-1].startswith("CLIENT "), (
+            "".join(lines)[-3000:], err_path.read_text()[-3000:])
+        seen = json_line("".join(lines), "CLIENT")
+        # (e) the state API while the client's actor lives
+        actors = [a for a in state.list_actors()
+                  if a["class_name"] == "ClientLM"]
+        nodes = state.list_nodes()
+        proc.stdin.write("\n")
+        proc.stdin.flush()
+        proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        server.stop()
+    assert proc.returncode == 0, (proc.returncode,
+                                  err_path.read_text()[-3000:])
+    want_list = want.tolist()
+    assert seen["one"] == want_list and seen["many"] == want_list, seen
+    assert seen["types"] == ["Tensor"] and seen["answer_devices"] == [
+        "cpu"], seen
+    assert not seen["cuda_available"], seen
+    assert seen["devices"] == [str(torch.device(device.type, 0))] or (
+        device.type == "cpu"), seen
+    n = len(want_list)
+    per_pass = width["n_layers"] * n
+    assert fa.launches == width["n_layers"] + 3 * per_pass, (
+        fa.launches, per_pass)
+    log(f"[leaf] (b) Ray Client from a process with CUDA_VISIBLE_DEVICES="
+        f"\"\": a num_gpus=1 actor holding a TorchPredictor, granted "
+        f"{seen['devices']}; {n} requests from 1 thread and from "
+        f"{CLIENT_THREADS}: answers equal to the direct ones, each a CPU "
+        f"tensor; {fa.launches} forward launches here (a warm-up request, "
+        f"a pass from 1 thread, a warm-up pass and a pass from "
+        f"{CLIENT_THREADS})")
+    log(f"[times] {card}: Ray Client, f32, one request a call: "
+        f"{n / seen['one_s']:.2f} requests/s from 1 thread, "
+        f"{n / seen['many_s']:.2f} from {CLIENT_THREADS} (their first "
+        f"pass {n / seen['first_s']:.2f}); the direct "
+        f"answers here {direct_f32_rps:.2f}; phase 5 direct (bf16, batched)"
+        f" {direct_rps:.2f}; the actor ready in {seen['ready_s']:.2f} s")
+    assert len(actors) == 1 and actors[0]["state"] == "ALIVE", actors
+    (node,) = [r for r in nodes if r["node_id"] == actors[0]["node_id"]]
+    total, avail = node["resources_total"], node["resources_available"]
+    assert total.get("GPU") == 1.0 and avail.get("GPU", 0.0) == 0.0, node
+    log(f"[leaf] (e) state API while the client's actor lived: list_actors "
+        f"shows ClientLM ALIVE on node {node['node_id'][:8]}, whose "
+        f"list_nodes row has GPU {total['GPU']} in total and "
+        f"{avail.get('GPU', 0.0)} available (the actor's grant); "
+        f"summarize_tasks: {state.summarize_tasks()['by_state']}")
+    return fa.launches
+
+
+def job_step(device, root):
+    """(d) ``JobManager``: the entry forward in a job, then a job that
+    holds the card until ``stop_job``."""
+    import os
+
+    from ray_tpu_torch.entry import CONFIG, entry
+    from ray_tpu_torch.job import JobManager, JobStatus
+    fn, args = entry(device)
+    mine = float(fn(*args).double().sum())
+    del fn, args
+    mgr = JobManager(job_dir=str(root / "jobs"))
+    code = ("import importlib, torch; "
+            "from ray_tpu_torch.entry import entry; "
+            "fa = importlib.import_module('ray_tpu_torch.ops.flash_attention'); "
+            f"fn, args = entry({device.type!r}); "
+            "print('CHECKSUM', repr(float(fn(*args).double().sum())), "
+            "'LAUNCHES', fa.launches, flush=True)")
+    t0 = time.perf_counter()
+    job = mgr.submit_job(entrypoint=f"{sys.executable} -c \"{code}\"",
+                         cwd=str(REPO))
+    status = mgr.wait_until_finished(job, timeout=SUBPROCESS_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+    logs = mgr.get_job_logs(job)
+    assert status == JobStatus.SUCCEEDED, (status, logs[-3000:])
+    (line,) = [ln for ln in logs.splitlines() if ln.startswith("CHECKSUM")]
+    _, checksum, _, launches = line.split()
+    assert float(checksum) == mine, (checksum, mine)
+    assert int(launches) == CONFIG.n_layers, line
+    log(f"[leaf] (d) a job running entry()'s forward: SUCCEEDED in "
+        f"{job_s:.2f} s, its log's checksum {checksum} equal to this "
+        f"process's, {launches} forward launches in the job's process")
+
+    free_device_caches()
+    free_before = torch.cuda.mem_get_info(device)[0] \
+        if device.type == "cuda" else 0
+    hold = ("import time, torch; "
+            f"x = torch.empty({JOB_HOLD_BYTES}, dtype=torch.uint8, "
+            f"device={device.type!r}); "
+            "print('HOLDING', flush=True); time.sleep(600)")
+    held = mgr.submit_job(entrypoint=f"{sys.executable} -c \"{hold}\"",
+                          cwd=str(REPO))
+    deadline = time.monotonic() + SUBPROCESS_TIMEOUT_S
+    while "HOLDING" not in mgr.get_job_logs(held):
+        assert mgr.get_job_status(held) == JobStatus.RUNNING, (
+            mgr.get_job_logs(held)[-3000:])
+        assert time.monotonic() < deadline, "the holding job never held"
+        time.sleep(0.1)
+    free_held = torch.cuda.mem_get_info(device)[0] \
+        if device.type == "cuda" else 0
+    assert free_before - free_held >= JOB_HOLD_BYTES or (
+        device.type == "cpu"), (free_before, free_held)
+    t0 = time.perf_counter()
+    assert mgr.stop_job(held)
+    assert mgr.wait_until_finished(held, timeout=60) == JobStatus.STOPPED
+    while mgr.get_job_info(held).end_time is None:
+        assert time.perf_counter() - t0 < 60, "the stopped job lives on"
+        time.sleep(0.05)
+    free_after = wait_free_memory(device, free_before) \
+        if device.type == "cuda" else 0
+    log(f"[leaf] (d) a job holding {JOB_HOLD_BYTES} bytes on the card: "
+        f"stop_job ended it STOPPED (return code "
+        f"{mgr.get_job_info(held).return_code}) in "
+        f"{time.perf_counter() - t0:.2f} s; the card's free memory "
+        f"{free_before} bytes before, {free_held} while it held, "
+        f"{free_after} after; the jobs inherited this process's "
+        f"CUDA_VISIBLE_DEVICES ({os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+    return int(launches)
+
+
+def autoscaled_answers(width, device_type):
+    """(f) in the daemon the autoscaler started: the model from its seed on
+    its card, and the answers with this process's forward launches."""
+    no_tf32()
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    device = granted_device(device_type)
+    cfg, params = seeded_lm(device, width)
+    _, _, requests = seeded_requests(width, N_REQUESTS)
+    before = fa.launches
+    answers = lm_answers(cfg, params, requests)
+    return answers, fa.launches - before
+
+
+def autoscaler_step(rt, fa, device, card, want, width, node_type=None,
+                    task=None):
+    """(f) a ``StandardAutoscaler`` over a ``ProcessCluster`` whose daemon
+    owns no card: a GPU task makes it start a GPU daemon, which it
+    terminates once idle."""
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.autoscaler import AutoscalerConfig, StandardAutoscaler
+    from ray_tpu_torch.cluster_utils import ProcessCluster
+    node_type = node_type or {"CPU": 2, "GPU": 1}
+    task = task or {"num_gpus": 1}
+    free_device_caches()
+    free_before = torch.cuda.mem_get_info(device)[0] \
+        if device.type == "cuda" else 0
+    cluster = ProcessCluster(num_daemons=1, num_cpus=2)
+    procs = [cluster.state_proc] + [d["proc"] for d in cluster.daemons]
+    try:
+        rt.init(address=cluster.address)
+        try:
+            runtime = worker.global_worker().runtime
+            provider = cluster.node_provider({"gpu": node_type})
+            scaler = StandardAutoscaler(
+                AutoscalerConfig(node_types={"gpu": node_type},
+                                 min_workers=0, max_workers=1,
+                                 idle_timeout_s=AUTOSCALE_IDLE_S),
+                provider, runtime=runtime)
+            t0 = time.perf_counter()
+            ref = rt.remote(**task)(autoscaled_answers).remote(
+                width, device.type)
+            while not scaler.update()["launched"]:
+                assert time.perf_counter() - t0 < 60, "no launch"
+                time.sleep(0.1)
+            (pid,) = provider.non_terminated_nodes()
+            while True:
+                try:
+                    provider.runtime_node_id(pid)
+                    break
+                except KeyError:
+                    assert time.perf_counter() - t0 < 60, "not registered"
+                    time.sleep(0.05)
+            registered_s = time.perf_counter() - t0
+            procs += [d["proc"] for d in cluster.daemons]
+            # update() goes on while the task runs, as a monitor's would:
+            # it must leave the busy daemon alone, and it restarts the
+            # daemon's idle clock
+            passes = 0
+            while not rt.wait([ref], timeout=0.2)[0]:
+                assert not scaler.update()["terminated"], "killed busy"
+                passes += 1
+                assert time.perf_counter() - t0 < 600, "no answer"
+            answers, daemon_launches = rt.get(ref, timeout=600)
+            answer_s = time.perf_counter() - t0
+            assert answers.device.type == device.type, answers.device
+            assert torch.equal(answers, want), (answers, want)
+            assert daemon_launches == width["n_layers"] * N_REQUESTS
+            del answers
+            t1 = time.perf_counter()
+            while not scaler.update()["terminated"]:
+                assert time.perf_counter() - t1 < 60, "no scale-down"
+                time.sleep(0.1)
+            down_s = time.perf_counter() - t0
+            assert provider.non_terminated_nodes() == []
+            free_after = wait_free_memory(device, free_before) \
+                if device.type == "cuda" else 0
+            scaler.stop()
+        finally:
+            rt.shutdown()
+    finally:
+        cluster.shutdown()
+    left = [p.pid for p in procs if p.poll() is None]
+    assert not left, left
+    log(f"[leaf] (f) StandardAutoscaler over a ProcessCluster whose daemon "
+        f"owns no card: a {task} task made update() launch one "
+        f"{node_type} daemon; {passes} more update() passes while it ran "
+        f"left it alone; its answers equal the direct ones "
+        f"({daemon_launches} forward launches in the daemon); idle "
+        f"{AUTOSCALE_IDLE_S} s, update() terminated it; the card's free "
+        f"memory {free_before} bytes before, {free_after} after; no process "
+        f"of the cluster is left")
+    log(f"[times] {card}: autoscaler, from the task's submission: the daemon"
+        f" registered {registered_s:.2f} s, the first answer "
+        f"{answer_s:.2f} s, scaled down {down_s:.2f} s (idle timeout "
+        f"{AUTOSCALE_IDLE_S} s; host clock)")
+    return daemon_launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -5055,11 +5673,17 @@ def main() -> int:
     free_device_caches()
     rl_multi_phase(fa, device, card)
 
+    # 24. the leaf libraries (workflow, Ray Client, Pool, joblib, jobs, the
+    # state API) and the autoscaler, each driving phase 5's model (forward
+    # launches counted in every process that ran one)
+    free_device_caches()
+    leaf_launches = leaf_phase(fa, device, card, N_REQUESTS / seconds)
+
     fwd_launches, dq_launches, dkv_launches = (
         a + b + c + d for a, b, c, d in zip(trained["launches"],
                                             trainer_launches, plane_launches,
                                             data_launches))
-    fwd_launches += daemon_launches
+    fwd_launches += daemon_launches + leaf_launches
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",

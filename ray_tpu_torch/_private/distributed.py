@@ -340,20 +340,6 @@ class DistributedRuntime(Runtime):
             "sole-copy objects re-replicated to healthy peers during drain",
             tag_keys=("node",)).set_default_tags({"node": node_tag})
 
-        # Register with the state service.
-        info = pb.NodeInfo(node_id=self.local_node.node_id.binary(),
-                           address=self.address, is_head=is_driver)
-        for k, v in self.local_node.resources.total.to_dict().items():
-            info.total.amounts[k] = v
-            info.available.amounts[k] = v
-        for k, v in (labels or {}).items():
-            info.labels[k] = str(v)
-        self.state.register_node(info)
-        if is_driver:
-            self.state.register_job(pb.JobInfo(
-                job_id=self.job_id.binary(), driver_address=self.address,
-                state="RUNNING", start_ms=time.time() * 1e3))
-
         # Borrow-protocol messages (ADD_BORROW / RELEASE_PIN /
         # REMOVE_BORROW) run on one FIFO worker PER PEER so registration
         # never blocks the unpickle path, a REMOVE can never overtake its
@@ -401,6 +387,21 @@ class DistributedRuntime(Runtime):
                 self.memory_monitor.start()
             except Exception:
                 logger.debug("memory monitor unavailable", exc_info=True)
+
+        # Register with the state service last: peers push tasks here as
+        # soon as the node is listed, so every handler's state must exist.
+        info = pb.NodeInfo(node_id=self.local_node.node_id.binary(),
+                           address=self.address, is_head=is_driver)
+        for k, v in self.local_node.resources.total.to_dict().items():
+            info.total.amounts[k] = v
+            info.available.amounts[k] = v
+        for k, v in (labels or {}).items():
+            info.labels[k] = str(v)
+        self.state.register_node(info)
+        if is_driver:
+            self.state.register_job(pb.JobInfo(
+                job_id=self.job_id.binary(), driver_address=self.address,
+                state="RUNNING", start_ms=time.time() * 1e3))
 
         # Pubsub: node lifecycle.
         self.state.subscribe(["nodes"], self._on_node_event)

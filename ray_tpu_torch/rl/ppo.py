@@ -179,6 +179,10 @@ class PPOLearner:
         self.mesh = mesh
         self.device = learner_device(device, mesh)
         self._share = None if mesh is None else _RowShare(mesh)
+        if self._share is not None and not self._share.axes:
+            # No batch axis has more than one rank, so no collective runs:
+            # the one-device update, not its mesh form over one share.
+            self._share = None
         self._continuous = continuous
         self.minibatch = cfg.sgd_minibatch_size   # rows of the batch's dim 0
         self.set_state((init_params, None))

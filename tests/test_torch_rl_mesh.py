@@ -16,6 +16,7 @@ without it. Held:
   port's one-device learner (a minibatch of 2 rows, fewer than the ranks,
   against the latter);
 - every rank's parameters bit-identical after the schedule;
+- a ``data=1`` mesh learner bit-equal to the one-device learner;
 - ``batch_to_device(sharding=)`` placing each rank's rows;
 - PPO and ``MultiAgentPPO`` through ``resources(mesh=)``, in lockstep.
 
@@ -137,6 +138,22 @@ def _ranks_body(params, batch, perms):
                      learner.opt_state["count"])
         if n_ranks == N_RANKS:
             out[f"{name}_lockstep"] = _all_equal(learner.params)
+    one = build_mesh(MeshConfig(data=1), "cpu", ranks=range(1))
+    if rank == 0:
+        # a data=1 mesh runs no collective: the one-device update exactly
+        sb = batch_to_device(SampleBatch(batch), "cpu")
+        ps = [torch.from_numpy(p) for p in perms]
+        learners = [PPOLearner(params, ppo_cfg(16), False, mesh=one,
+                               device="cpu"),
+                    PPOLearner(params, ppo_cfg(16), False, device="cpu")]
+        metrics = [ln.sgd(sb, 0.2, ps) for ln in learners]
+        out["data1"] = (
+            learners[0]._share is None,
+            all(torch.equal(a, b) for a, b in zip(
+                models.tree_leaves(learners[0].params),
+                models.tree_leaves(learners[1].params))),
+            metrics[0] == metrics[1],
+            learners[0].opt_state["count"] == learners[1].opt_state["count"])
     mesh = meshes[(tuple(sorted(PLANS[1][1].items())), N_RANKS)]
     placed = batch_to_device(
         SampleBatch({"x": np.arange(16, dtype=np.float64).reshape(8, 2)}),
@@ -249,6 +266,13 @@ def test_mesh_ranks_stay_in_lockstep(results):
     got = results[0]
     assert all(got[f"{name}_lockstep"] for name, _, n, _ in PLANS
                if n == N_RANKS)
+
+
+def test_data1_mesh_learner_equals_the_one_device_learner(results):
+    """A mesh whose batch axes all have size 1 takes the one-device path:
+    parameters bit-equal (``torch.equal``), the same metrics and step
+    count after the schedule."""
+    assert results[0]["data1"] == (True, True, True, True)
 
 
 def test_batch_to_device_places_each_ranks_rows(results):
