@@ -109,11 +109,11 @@ Phases, each of which asserts:
    ``init(num_cpus=8)``): (a) phase 9's model, weights and batch in one
    ``use_gpu`` worker on the ``nccl`` group, whose loop builds
    ``make_lm_train_step`` on ``session.get_mesh()`` (a ``data=1`` mesh over
-   a world of one) and feeds ``session.shard_batch``: 1 + 5 steps, each
-   reported, every third with the full f32 state (parameters and AdamW
-   moments, 3.2 GB) checkpointed into the git-ignored build/trainer (two
-   kept; the free space is checked first, and the directory deleted at
-   the end); losses finite and falling, 2 x n_layers / n_layers /
+   a world of one) and feeds ``session.shard_batch``: 1 + 2 steps, each
+   reported, the third with the full f32 state (parameters and AdamW
+   moments, 3.2 GB) checkpointed into the git-ignored build/trainer (the
+   free space is checked first, and the directory deleted at the end);
+   losses finite and falling, 2 x n_layers / n_layers /
    n_layers launches every step, the committed state restored byte for
    byte against the host copy of its step; the trainer's step beside
    phase 9's, ``session.report`` ms, the checkpoint's enqueue ms, commit
@@ -299,7 +299,29 @@ Phases, each of which asserts:
    makes ``update()`` start a GPU daemon, the task's answers come back
    equal, and once idle the daemon is terminated and the card's memory
    comes back; seconds from the demand to the daemon registered, to the
-   answer and to the scale-down.
+   answer and to the scale-down;
+25. the cluster tools around phase 5's model (f32, weights from its seed):
+   (a) ``python -m ray_tpu_torch.scripts.cluster start --head
+   --num-gpus=0`` and ``start --address=<head> --num-gpus=1`` with the
+   head's token, each in its own run dir under ``build/cli`` (the head
+   boots while this process makes the references); ``status`` lists both
+   daemons alive and 1 GPU; a driver ``init(address=, auth_token=,
+   num_cpus=1, include_dashboard=True)`` (its CPU hosts the Serve
+   controller) whose ``/api/cluster`` lists the GPU node;
+   (b) with ``autopilot_enabled``, a batched deployment (``max_batch_size``
+   8, a linger of 200 ms) on a ``num_gpus=1`` replica in the GPU daemon,
+   the Serve controller in the driver: 16 requests one at a time, then
+   ``poke()``: the journal shows an applied halving of
+   ``serve.lm25.linger_ms`` with the daemon's queue wait p95 as its
+   evidence, and 16 more requests wait less; every answer matches the
+   dense run at rtol = atol = 1e-3 and equals the direct forward bit for
+   bit; ``python -m ray_tpu_torch.doctor --address --explain`` prints the
+   decision; (c) ``python -m ray_tpu_torch.scripts.cli top --json
+   --subsystem serve`` shows the daemon's ``serve.*`` rows; (d) a task held
+   in flight on the GPU daemon by a chaos delay, the daemon SIGKILLed: the
+   doctor reads the crash, the task and its trace id from the flight dir,
+   and the card's free memory is back within 64 MiB in under 10 s; (e)
+   ``shutdown()`` and ``stop`` on both run dirs leave no process.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -362,6 +384,10 @@ PARITY_STEPS = 3
 TRAIN_RTOL = 1e-4
 TRAIN_BATCH = (8, 1025)
 TRAIN_STEPS = 5      # measured, after one warm-up step
+# Phase 17 (a): TorchTrainer's steps after the warm-up one; the state is
+# committed at the third report (3.2 GB), so a run of 1 + 2 steps makes one
+# commit where 1 + 5 made two.
+TRAINER_STEPS = 2
 STEP_PAIRS = 5       # phase 14 (d): rounds of the two step paths in turns
 # ResNet: phase 11 (f32 parity, card vs CPU) and phase 12 (bf16 training).
 RESNET_PARITY_SIDES = (64, 37)
@@ -437,6 +463,20 @@ POOL_CHUNKSIZE = 2               # (c) requests per Pool task
 JOB_HOLD_BYTES = 2**30           # (d) what the second job holds on the card
 AUTOSCALE_IDLE_S = 2.0           # (f) idle seconds before scale-down
 SUBPROCESS_TIMEOUT_S = 300
+# Phase 25: a cluster from the CLI, the autopilot, the dashboard head, the
+# doctor. The run dirs and the GPU daemon's flight dir go under the
+# git-ignored build/. The deployment's linger is deliberately far above
+# what one request at a time needs, so the queue wait's p95 sits above half
+# of the serve_target_latency_ms knob (100 ms) and the autopilot halves it.
+CLI_DIR = "build/cli"
+AUTOPILOT_DEPLOYMENT = "lm25"
+AUTOPILOT_LINGER_MS = 200.0
+AUTOPILOT_CONFIG = {"autopilot_enabled": True,
+                    # the controller ticks once at start, then only when
+                    # poked, so the reaction is timed from poke()
+                    "autopilot_tick_s": 3600.0}
+DOOMED_DELAY_MS = 60_000         # (d) the chaos delay that holds the task
+MEMORY_BACK_S = 10.0             # (d) the card's memory back within this
 
 
 def log(msg: str) -> None:
@@ -1524,8 +1564,14 @@ def backward_times(fa, device, B, L, H, D, dt):
     ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=True)
     dot = do.transpose(1, 2).contiguous()
-    res["library_ms"] = time_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True))
+    def sdpa_bwd():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    res["library_ms"] = time_ms(sdpa_bwd)
+    # read twice, around one more kernel run: SDPA's backward has read
+    # more than 2x apart between runs
+    time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta, True, scale))
+    res["library_ms_repeat"] = time_ms(sdpa_bwd)
     bounds = backward_bounds(B, L, L, H, D, dt, True)
     res["dq_bound"], res["dkv_bound"] = bounds["dq"], bounds["dkv"]
     return res
@@ -1855,12 +1901,13 @@ def _assert_same_bytes(got, want, path="state"):
 
 def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
                        width=SERVE_WIDTH, batch=TRAIN_BATCH,
-                       steps=TRAIN_STEPS):
+                       steps=TRAINER_STEPS):
     """Phase 17 (a): phase 9's model, weights and batch trained by
-    ``TorchTrainer`` in one ``use_gpu`` worker on the ``nccl`` group, 1 + 5
-    steps, the full state checkpointed at every third report (two kept);
-    then the committed state restored and held against the host copy taken
-    at that step. Returns the launches of the run and its median step ms."""
+    ``TorchTrainer`` in one ``use_gpu`` worker on the ``nccl`` group, 1 +
+    ``steps`` steps, the full state checkpointed at every third report (two
+    kept); then the newest committed state restored and held against the
+    host copy taken at that step. Returns the launches of the run and its
+    median step ms."""
     from ray_tpu_torch.air import (Checkpoint, CheckpointConfig, RunConfig,
                                    ScalingConfig)
     from ray_tpu_torch.checkpoint import list_manifest_names, read_manifest
@@ -1922,18 +1969,21 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
     step_ms = statistics.median(m["step_ms"] for m in hist[1:])
     report_ms = [ms for _, saved, ms in timings if not saved]
     enqueue_ms = [ms for _, saved, ms in timings if saved]
-    # (a) the committed state, restored, against the host copy of step 6
+    # (a) the newest committed state, restored, against the host copy
+    # taken at its step
     ckpt_root = root / "full" / "checkpoints"
     names = list_manifest_names(str(ckpt_root))
     manifests = [read_manifest(str(ckpt_root), nm) for nm in names]
-    # the engine numbers commits by reported checkpoint: steps 3 and 6
-    assert sorted(m.step for m in manifests) == [1, 2], [m.step for m in
-                                                         manifests]
+    # the engine numbers commits by reported checkpoint (steps 3, 6, ...)
+    commits = (steps + 1) // 3
+    assert sorted(m.step for m in manifests) == list(
+        range(max(1, commits - 1), commits + 1)), [m.step for m in manifests]
     t0 = time.perf_counter()
     restored = Checkpoint.from_manifest(str(ckpt_root)).to_dict()
     restore_s = time.perf_counter() - t0
     want = result.checkpoint.to_dict()
-    assert want["step"] == 6 and restored["step"] == 6
+    last = 3 * commits
+    assert want["step"] == last and restored["step"] == last
     _assert_same_bytes(restored, want)
     commit_bytes = [sum(e.nbytes for s in m.shards for e in s.arrays)
                     for m in manifests]
@@ -1959,7 +2009,7 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
         f" s, hash per chunk mean {_perf_mean_ms(snap, 'ckpt.hash'):.1f} ms,"
         f" write per chunk mean {_perf_mean_ms(snap, 'ckpt.write'):.1f} ms; "
         f"bytes per commit {commit_bytes}, on disk {_chunk_bytes(ckpt_root)}"
-        f"; restore of step 6 {restore_s:.3f} s, byte for byte equal to the "
+        f"; restore of step {last} {restore_s:.3f} s, byte for byte equal to the "
         f"host copy taken at that step")
     log(f"[trainer] (a) goodput ledger (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(cats.items()))
@@ -5463,6 +5513,428 @@ def autoscaler_step(rt, fa, device, card, want, width, node_type=None,
     return daemon_launches
 
 
+# -- phase 25: the cluster CLI, the dashboard head, the autopilot, the doctor --
+
+
+class AutopilotLM:
+    """User code for phase 25 (b): phase 5's f32 model from its seed on the
+    replica's card; the replica batches requests itself, so ``__call__``
+    takes a list and answers each request with its logit row (numpy)."""
+
+    def __init__(self, width, device_type):
+        import os
+        no_tf32()
+        self.fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+        self.device = granted_device(device_type)
+        self.cfg, self.params = seeded_lm(self.device, width)
+        self.pid, self.sizes = os.getpid(), []
+
+    def __call__(self, requests):
+        self.sizes.append(len(requests))
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in pad_requests(requests).items()}
+        with torch.inference_mode():
+            rows = last_token_logits(self.cfg, self.params, batch)
+        return list(rows.cpu().numpy())
+
+    def where(self):
+        """(the weights' device, this process's pid)."""
+        return str(next(iter(self.params.values())).device), self.pid
+
+    def counts(self):
+        """(forward-kernel launches in this process, batch sizes so far)."""
+        return self.fa.launches, list(self.sizes)
+
+
+def doomed_forward(width, device_type):
+    """(d) the task the GPU daemon dies with: a chaos delay on its
+    ``task.execute`` holds it in flight."""
+    cfg, params = seeded_lm(granted_device(device_type), width)
+    _, _, requests = seeded_requests(width, 1)
+    return lm_answers(cfg, params, requests)
+
+
+def start_module(module, *args, env=None):
+    """``python -m module args`` from the repository's root, started: (the
+    process, the host clock at its start)."""
+    proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                            cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_modules(*started, timeout_s=SUBPROCESS_TIMEOUT_S):
+    """Wait for ``start_module`` processes that run at once: [(seconds from
+    each one's start to its own exit, stdout)]. Fails unless each exits 0."""
+    done = [None] * len(started)
+
+    def wait(i):
+        proc, t0 = started[i]
+        out, err = proc.communicate(timeout=timeout_s)
+        done[i] = (time.perf_counter() - t0, out, err)
+
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(started))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (proc, _), got in zip(started, done):
+        assert got is not None and proc.returncode == 0, (
+            proc.args[2:], proc.returncode, got and got[1][-3000:],
+            got and got[2][-3000:])
+    return [(seconds, out) for seconds, out, _ in done]
+
+
+def finish_module(started):
+    """``finish_modules`` of one process: (seconds, stdout)."""
+    return finish_modules(started)[0]
+
+
+def wait_for_file(path, started, timeout_s=120.0):
+    """Seconds from ``started``'s start until ``path`` exists; fails if the
+    process exits first or the time runs out."""
+    proc, t0 = started
+    while not path.exists():
+        if proc.poll() is not None:
+            finish_module(started)
+            raise AssertionError(f"{path} never appeared")
+        assert time.perf_counter() - t0 < timeout_s, path
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def parse_status(text):
+    """``scripts.cluster status``'s output: {address: total resources} of
+    its alive nodes."""
+    import ast
+    assert re.search(r"nodes: \d+ alive / \d+ total", text), text
+    return {line.split()[3]: ast.literal_eval(line.split(" total=", 1)[1])
+            for line in text.splitlines()
+            if " ALIVE " in line and " total=" in line}
+
+
+def queue_wait_counts(head, label):
+    """The raw ``serve.queue_wait`` bucket counts, their sum and bounds on
+    one node of the perf federation (``None`` if it has none)."""
+    from ray_tpu_torch.observability import perf
+    snaps, _ = head._metric_snapshots()
+    return perf.extract_perf(snaps.get(label) or []).get("serve.queue_wait")
+
+
+def queue_wait_p95(now, before=None):
+    """p95 of the samples in ``now`` that ``before`` had not yet seen."""
+    from ray_tpu_torch.observability import perf
+    counts = [int(c) for c in now["counts"]]
+    sum_ms = float(now.get("sum_ms", 0.0))
+    if before is not None:
+        counts = [a - int(b) for a, b in zip(counts, before["counts"])]
+        sum_ms -= float(before.get("sum_ms", 0.0))
+    return perf.summarize(counts, sum_ms, now.get("bounds"))
+
+
+def cluster_pids(markers):
+    """Live processes whose command line names any of ``markers`` (a
+    cluster's run dirs and address): its supervisors, state service and
+    daemons, restarted ones included."""
+    import os
+    from ray_tpu_torch.scripts.cluster import _running
+    pids = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if any(m in cmd for m in markers) and _running(int(pid)):
+            pids.append(int(pid))
+    return pids
+
+
+def autopilot_phase(fa, device, card, width=SERVE_WIDTH):
+    """Phase 25: a cluster started by the CLI, a driver with the dashboard
+    head and the autopilot in it, phase 5's model as a batched Serve
+    deployment on the GPU node, the CLI's ``top`` and the doctor against the
+    live cluster and after a daemon's kill. Returns the flash forward
+    kernel's launches: the direct answers' here and the replica's, counted
+    in the GPU daemon's process."""
+    import os
+    import signal
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import observability, serve
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.scripts import cluster as cluster_cli
+
+    t_phase = time.perf_counter()
+    root = REPO / CLI_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    head_dir, gpu_dir, flight = root / "head", root / "gpu", root / "flight"
+    flight.mkdir(parents=True)
+    _, _, requests = seeded_requests(width, N_REQUESTS)
+    knob = f"serve.{AUTOPILOT_DEPLOYMENT}.linger_ms"
+
+    cli = "ray_tpu_torch.scripts.cluster"
+    head_env = dict(os.environ, RAY_TPU_FLIGHT_RECORDER_DIR=str(root / "hf"))
+    gpu_env = dict(os.environ, RAY_TPU_FLIGHT_RECORDER_DIR=str(flight),
+                   RAY_TPU_FLIGHT_RECORDER_SPOOL_MS="50",
+                   RAY_TPU_CHAOS=f"5:task.execute[name=*doomed_forward*]@1="
+                                 f"delay({DOOMED_DELAY_MS})")
+    doctor = gpu_stop = None
+    markers = [str(head_dir), str(gpu_dir)]
+    try:
+        # (a) the cluster from the CLI: a head whose processes see no card
+        head_start = start_module(cli, "start", "--head", "--num-gpus=0",
+                                  "--num-cpus=2", f"--run-dir={head_dir}",
+                                  env=head_env)
+        # The references, made here while the head boots and before the GPU
+        # daemon starts: the direct forward of each request alone at its
+        # bucket (phase 24's), and the one-request, unpadded dense run.
+        cfg, params = seeded_lm(device, width)
+        dense_cfg = dataclasses.replace(cfg, use_flash=False)
+        direct, dense = [], []
+        fa.launches = 0
+        with torch.inference_mode():
+            for r in requests:
+                batch = {k: torch.as_tensor(v, device=device)
+                         for k, v in pad_requests([r]).items()}
+                direct.append(last_token_logits(cfg, params, batch)[0].cpu()
+                              .numpy())
+                tokens = torch.tensor([r], device=device)
+                dense.append(transformer.apply(params, tokens, dense_cfg)
+                             [0, -1].cpu().numpy())
+        direct_launches = fa.launches
+        assert direct_launches == width["n_layers"] * len(requests)
+        del params, batch, tokens
+        free_device_caches()
+        free_before = torch.cuda.mem_get_info(device)[0] \
+            if device.type == "cuda" else 0
+        # the GPU worker joins once the head has published its address
+        address_s = wait_for_file(head_dir / "address", head_start)
+        address = (head_dir / "address").read_text().strip()
+        markers.append(address)
+        token = (head_dir / "token").read_text().strip()
+        token_env = dict(os.environ, RAY_TPU_AUTH_TOKEN=token)
+        gpu_start = start_module(cli, "start", f"--address={address}",
+                                 "--num-gpus=1", "--num-cpus=2",
+                                 f"--run-dir={gpu_dir}",
+                                 f"--token-file={head_dir / 'token'}",
+                                 env=gpu_env)
+        while not any(n["alive"] and n["total"].get("GPU") == 1.0
+                      for n in cluster_cli.status(
+                          run_dir=str(head_dir))["nodes"]):
+            assert gpu_start[0].poll() in (None, 0), finish_module(gpu_start)
+            assert time.perf_counter() - gpu_start[1] < 120, "no GPU node"
+            time.sleep(0.05)
+        registered_s = time.perf_counter() - gpu_start[1]
+        head_s, _ = finish_module(head_start)
+        finish_module(gpu_start)
+        gpu_pid = int((gpu_dir / "daemon.pid").read_text())
+        # status runs beside the driver's start; it must list both daemons
+        # alive and the one GPU (the driver's own node holds none)
+        status = start_module(cli, "status", f"--run-dir={head_dir}")
+        config = {k: str(REPO / v) for k, v in RUNTIME_CONFIG.items()}
+        w = rt.init(address=address, auth_token=token, num_cpus=1,
+                    include_dashboard=True,
+                    _system_config=dict(config, **AUTOPILOT_CONFIG))
+        try:
+            alive = parse_status(finish_module(status)[1])
+            daemons = {(d / "daemon.addr").read_text().strip()
+                       for d in (head_dir, gpu_dir)}
+            gpus = sum(r.get("GPU", 0.0) for r in alive.values())
+            assert daemons <= set(alive) and gpus == 1.0, (alive, daemons)
+            head = w.dashboard_head
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{w.dashboard_port}/api/cluster",
+                    timeout=60) as resp:
+                nodes = json.loads(resp.read())["nodes"]
+            (gpu_node,) = [n for n in nodes
+                           if n["alive"] and n["total"].get("GPU") == 1.0]
+            label = f"node:{gpu_node['node_id'][:8]}"
+            log(f"[cli] (a) scripts.cluster start --head --num-gpus=0 "
+                f"published the address in {address_s:.2f} s and returned "
+                f"in {head_s:.2f} s; start --address --num-gpus=1 with the "
+                f"head's token; status: both daemons alive, {gpus:.0f} GPU; a"
+                f" driver init(address=, auth_token=, num_cpus=1, "
+                f"include_dashboard=True) serves /api/cluster on port "
+                f"{w.dashboard_port}, which lists the GPU node {label}")
+            launches, rows = autopilot_serve(
+                serve, head, address, device, requests, direct, dense,
+                width, knob, label, gpu_pid, token_env)
+            # (d) the doctor after a kill
+            observability.enable()
+            doomed = rt.remote(num_gpus=1, max_retries=0)(doomed_forward)
+            with observability.span("phase25-doomed") as sp:
+                trace_id = sp.trace_id
+                ref = doomed.remote(width, device.type)
+                deadline = time.monotonic() + 60
+                while not any(trace_id.encode() in lw.read_bytes()
+                              for lw in flight.glob("*/lastwords.bin")):
+                    assert time.monotonic() < deadline, "never in flight"
+                    time.sleep(0.05)
+            os.kill(gpu_pid, signal.SIGKILL)
+            t_kill = time.perf_counter()
+            # the GPU node's stop starts now: its supervisor is restarting
+            # the daemon meanwhile, which a later stop would wait out
+            gpu_stop = start_module(cli, "stop", f"--run-dir={gpu_dir}")
+            del ref
+            free_after = wait_free_memory(device, free_before,
+                                          timeout_s=MEMORY_BACK_S) \
+                if device.type == "cuda" else 0
+            back_s = time.perf_counter() - t_kill
+            # the doctor reads the flight dir while the cluster goes down
+            doctor = start_module("ray_tpu_torch.doctor",
+                                  f"--flight-dir={flight}", "--json")
+        finally:
+            rt.shutdown()
+    finally:
+        # (e) stop both nodes; fails if any process of the cluster is left
+        pids = set(cluster_pids(markers)) - {gpu_stop and gpu_stop[0].pid}
+        stops = [gpu_stop] + [start_module(cli, "stop", f"--run-dir={d}")
+                              for d in (gpu_dir, head_dir)[bool(gpu_stop):]
+                              if (d / "supervisor.pid").exists()]
+        done = finish_modules(*filter(None, [doctor] + stops))
+        deadline = time.monotonic() + 15
+        while cluster_pids(markers):
+            assert time.monotonic() < deadline, cluster_pids(markers)
+            time.sleep(0.1)
+    doctor_s, text = done[0]
+    report = json.loads(text)
+    (crash,) = [c for c in report["crashes"] if trace_id in c["trace_ids"]]
+    assert crash["role"] == "host_daemon", crash
+    assert "external-kill" in crash["exit_reason"], crash
+    assert crash["pid"] == gpu_pid, (crash["pid"], gpu_pid)
+    assert any(t["name"].endswith("doomed_forward")
+               and t["trace_id"] == trace_id
+               for t in crash["inflight_tasks"]), crash
+    log(f"[cli] (d) a num_gpus=1 task held in flight on the GPU daemon by a "
+        f"chaos delay on task.execute, then SIGKILL of the daemon (pid "
+        f"{gpu_pid}): doctor --flight-dir --json reports the crash "
+        f"({crash['exit_reason']}, sealed by {crash['sealed_by']}), the "
+        f"in-flight doomed_forward and its trace {trace_id}; the card's free "
+        f"memory {free_before} bytes before the daemon started, {free_after} "
+        f"{back_s:.2f} s after the kill")
+    log(f"[cli] (e) scripts.cluster stop on the GPU node's run dir from the "
+        f"kill on, shutdown(), then on the head's ("
+        f"{', '.join(f'{t:.2f}' for t, _ in done[1:])} s): no process of the"
+        f" cluster is left ({len(pids)} of its supervisor, state-service and"
+        f" daemon processes were live when the head's stop began)")
+    log(f"[times] {card}: phase 25 (host clock): the GPU node registered "
+        f"{registered_s:.2f} s after scripts.cluster start; serve.run "
+        f"{rows['serve_run_s']:.2f} s; the autopilot's reaction from poke() "
+        f"to the retune on the replica {rows['reaction_s']:.3f} s; the "
+        f"doctor's collection {rows['explain_s']:.2f} s live (--address "
+        f"--explain) and {doctor_s:.2f} s from the flight dir (each a fresh "
+        f"process); queue wait p95 {rows['p95_before']:.1f} ms before the "
+        f"retune, {rows['p95_after']:.1f} ms after; {launches} forward "
+        f"launches in the GPU daemon, {direct_launches} here for the direct "
+        f"answers")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[cli] phase 25 in {time.perf_counter() - t_phase:.1f} s")
+    return direct_launches + launches
+
+
+def autopilot_serve(serve, head, address, device, requests, direct, dense,
+                    width, knob, label, gpu_pid, token_env):
+    """Phase 25 (b) and (c) on the live cluster: the batched deployment on
+    the GPU daemon, the autopilot's retune of its linger, the doctor's
+    ``--explain`` and the CLI's ``top``. Returns the forward launches in
+    the GPU daemon and the phase's times."""
+    from ray_tpu_torch.autopilot import APPLIED, registry
+
+    n_layers, n = width["n_layers"], len(requests)
+    lm = serve.deployment(
+        AutopilotLM, name=AUTOPILOT_DEPLOYMENT, max_batch_size=8,
+        batch_wait_timeout_s=AUTOPILOT_LINGER_MS / 1e3,
+        pad_batch_to=BATCH_BUCKETS, target_latency_ms=SERVE_BUDGET_MS,
+        ray_actor_options={"num_gpus": 1})
+    t0 = time.perf_counter()
+    h = serve.run(lm.bind(width, device.type))
+    serve_run_s = time.perf_counter() - t0
+    where, pid = h.where.remote().result(timeout=60)
+    assert where.startswith(device.type) and pid == gpu_pid, (where, pid)
+    # the Serve controller runs in this process (the driver's CPU), so its
+    # actuators are in the registry the head's autopilot drives
+    act = registry().get(knob)
+    assert act is not None and act.get() == AUTOPILOT_LINGER_MS, \
+        registry().names()
+    assert head.autopilot is not None
+    launches0, _ = h.counts.remote().result(timeout=60)
+
+    def one_at_a_time():
+        return [h.remote(r).result(timeout=300) for r in requests]
+
+    # the replica's calls that bypass the batcher (where, counts) add
+    # samples of 0 ms: each pass is read as the difference of two reads
+    start = queue_wait_counts(head, label)
+    answers = one_at_a_time()
+    before = queue_wait_counts(head, label)
+    assert sum(before["counts"]) - sum(start["counts"]) == n, (start, before)
+    p95_before = queue_wait_p95(before, start)["p95_ms"]
+    # what the autopilot reads: the cluster's p95 over every sample so far
+    p95_seen = queue_wait_p95(before)["p95_ms"]
+    ap = head.autopilot
+    t0 = time.perf_counter()
+    ap.poke()
+    while not ap.journal.records(knob):
+        assert time.perf_counter() - t0 < 60, ap.status()
+        time.sleep(0.005)
+    reaction_s = time.perf_counter() - t0
+    (dec,) = ap.journal.records(knob)
+    assert dec.action == APPLIED, dec
+    assert (dec.old, dec.new) == (AUTOPILOT_LINGER_MS,
+                                  AUTOPILOT_LINGER_MS / 2), dec
+    assert dec.evidence["queue_wait_p95_ms"] == p95_seen, (dec, p95_seen)
+    assert act.get() == AUTOPILOT_LINGER_MS / 2
+    answers += one_at_a_time()
+    after = queue_wait_counts(head, label)
+    p95_after = queue_wait_p95(after, before)["p95_ms"]
+    assert p95_after < 0.75 * p95_before, (p95_before, p95_after)
+    launches, sizes = h.counts.remote().result(timeout=60)
+    launches -= launches0
+    assert sizes == [1] * (2 * n), sizes
+    assert launches == n_layers * 2 * n, (launches, n_layers)
+    for i, got in enumerate(answers):
+        np.testing.assert_allclose(got, dense[i % n], rtol=1e-3, atol=1e-3)
+        assert np.array_equal(got, direct[i % n]), i
+    log(f"[cli] (b) autopilot_enabled: a batched deployment (f32, "
+        f"max_batch_size 8, linger {AUTOPILOT_LINGER_MS:.0f} ms) on a "
+        f"num_gpus=1 replica in the GPU daemon (pid {pid}, weights on "
+        f"{where}) registered {knob} in the driver; {n} requests one at a "
+        f"time (queue wait p95 {p95_before:.1f} ms), poke(): the journal "
+        f"shows {dec.action} {dec.old} -> {dec.new} ({dec.reason}) with the "
+        f"daemon's queue wait p95 {p95_seen:.1f} ms (every sample so far) as"
+        f" evidence; {n} more at the new linger "
+        f"(p95 {p95_after:.1f} ms); {2 * n} answers in batches of one match "
+        f"the dense run at rtol=atol=1e-3 and equal the direct forward bit "
+        f"for bit; {launches} forward launches in the daemon")
+
+    # the doctor's --explain and the CLI's top run at once, read-only
+    samples = sum(queue_wait_counts(head, label)["counts"])
+    explain = start_module("ray_tpu_torch.doctor", f"--address={address}",
+                           "--no-seal", "--explain", knob, env=token_env)
+    top = start_module("ray_tpu_torch.scripts.cli", "top",
+                       f"--address={address}", "--json", "--subsystem",
+                       "serve", env=token_env)
+    (explain_s, text), (_, top) = finish_modules(explain, top)
+    assert f"ray_tpu_torch doctor --explain {knob}" in text, text
+    assert f"applied: {dec.old} -> {dec.new}" in text, text
+    assert f"queue_wait_p95_ms={p95_seen}" in text, text
+    top = json.loads(top)
+    assert top["nodes"][label]["serve.queue_wait"]["count"] == samples, top
+    assert all(name.startswith("serve.") for per in top["nodes"].values()
+               for name in per), top["nodes"]
+    log(f"[cli] (c) doctor --address --explain {knob} printed the decision "
+        f"and its evidence ({explain_s:.2f} s); scripts.cli top --json "
+        f"--subsystem serve exited 0 with the daemon's serve.queue_wait row "
+        f"({samples} samples, {2 * n} of them batched) and no other "
+        f"subsystem")
+    serve.shutdown()
+    assert registry().get(knob) is None, registry().names()
+    return launches, dict(serve_run_s=serve_run_s, reaction_s=reaction_s,
+                          explain_s=explain_s, p95_before=p95_before,
+                          p95_after=p95_after)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5566,7 +6038,9 @@ def main() -> int:
         f"ms, {bwd['dq_bound'][1]}), dkv kernel {bwd['dkv_ms']:.4f} ms "
         f"(bound {bwd['dkv_bound'][0]:.4f} ms, {bwd['dkv_bound'][1]}), plain"
         f" backward {bwd['plain_ms']:.4f} ms, SDPA backward "
-        f"{bwd['library_ms']:.4f} ms; per training step {2 * n} forward + "
+        f"{bwd['library_ms']:.4f} ms (read again: "
+        f"{bwd['library_ms_repeat']:.4f} ms); per training step {2 * n} "
+        f"forward + "
         f"{n} dq + {n} dkv launches = {100 * share:.1f}% of the "
         f"{step_ms:.3f} ms step: {split}")
 
@@ -5679,11 +6153,18 @@ def main() -> int:
     free_device_caches()
     leaf_launches = leaf_phase(fa, device, card, N_REQUESTS / seconds)
 
+    # 25. a cluster started by the CLI, the dashboard head with the
+    # autopilot retuning a batched deployment on the GPU node, the CLI's top
+    # and the doctor, live and after a daemon's kill (forward launches
+    # counted here and in the GPU daemon)
+    free_device_caches()
+    cli_launches = autopilot_phase(fa, device, card)
+
     fwd_launches, dq_launches, dkv_launches = (
         a + b + c + d for a, b, c, d in zip(trained["launches"],
                                             trainer_launches, plane_launches,
                                             data_launches))
-    fwd_launches += daemon_launches + leaf_launches
+    fwd_launches += daemon_launches + leaf_launches + cli_launches
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",

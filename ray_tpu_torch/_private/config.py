@@ -255,8 +255,11 @@ _config.define("trace_ring_size", int, 200_000,
 _config.define("flight_recorder_enabled", bool, True,
                "spool spans/logs/metrics to a crash-safe on-disk ring so a "
                "SIGKILL'd process still leaves evidence behind")
-_config.define("flight_recorder_dir", str, os.path.join(_TMP, "ray_tpu", "flight"),
-               "root for per-process recording dirs and sealed crash bundles")
+_config.define("flight_recorder_dir", str,
+               os.path.join(_TMP, "ray_tpu_torch", "flight"),
+               "root for per-process recording dirs and sealed crash bundles "
+               "(the port's own: the doctor reads and seals what it finds "
+               "there)")
 _config.define("flight_recorder_spool_ms", int, 500,
                "spool-thread tick period; lower = fresher last words after "
                "a hard kill, higher = cheaper")

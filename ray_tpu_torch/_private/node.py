@@ -193,16 +193,19 @@ class NodeSupervisor:
         self.shutdown()
 
     def shutdown(self):
+        # The daemon first, and the state service only once it is gone: a
+        # daemon whose state service died first spends its graceful window
+        # retrying it and is killed at the timeout.
         for proc in (self.daemon_proc, self.state_proc):
-            if proc is not None and proc.poll() is None:
+            if proc is None:
+                continue
+            if proc.poll() is None:
                 proc.terminate()
-        for proc in (self.daemon_proc, self.state_proc):
-            if proc is not None:
-                try:
-                    proc.wait(timeout=10)
-                except Exception as e:
-                    logger.debug("graceful stop timed out; killing: %s", e)
-                    proc.kill()
+            try:
+                proc.wait(timeout=10)
+            except Exception as e:
+                logger.debug("graceful stop timed out; killing: %s", e)
+                proc.kill()
         for name in ("supervisor.pid", "daemon.pid", "state.pid",
                      "address", "daemon.addr"):
             try:

@@ -4,8 +4,9 @@ Parity with ``python/ray/_private/worker.py`` (``ray.init`` :1003, ``ray.get``
 :2162, ``ray.put`` :2276, ``ray.wait`` :2331, ``ray.shutdown`` :1529).
 
 ``init(address=...)`` joins a multi-process cluster (``distributed.py``);
-``init(include_dashboard=True)`` raises ``NotImplementedError``: the
-dashboard is not ported yet.
+``init(include_dashboard=True)`` starts the dashboard head over that
+cluster's state service (``dashboard/head.py``), or, without ``address=``,
+the driver's JSON state server (``_private/state_server.py``).
 """
 
 from __future__ import annotations
@@ -82,14 +83,13 @@ def init(num_cpus: Optional[float] = None,
     node contributes no resources unless ``num_cpus``/``num_gpus`` are
     passed explicitly.
 
-    ``include_dashboard=True`` needs ``dashboard/``'s head, which is not
-    ported yet (ROADMAP Queue 1); it raises ``NotImplementedError``.
+    ``include_dashboard=True`` serves the dashboard on ``dashboard_port``
+    (0 picks a free one; the bound port is ``Worker.dashboard_port``): with
+    ``address=`` the dashboard head over the cluster's state service, which
+    also hosts the autopilot when ``autopilot_enabled`` is on; without it
+    the in-process runtime's JSON state server.
     """
     global _global
-    if include_dashboard:
-        raise NotImplementedError(
-            "init(include_dashboard=True) needs dashboard/, which is not "
-            "ported yet (ROADMAP Queue 1: framework-neutral libraries)")
     with _global_lock:
         if _global is not None:
             if ignore_reinit_error:
@@ -132,7 +132,20 @@ def init(num_cpus: Optional[float] = None,
             runtime = DistributedRuntime(
                 state_addr=address, resources=ResourceSet(amounts),
                 is_driver=True, namespace=namespace or "default")
-            _global = Worker(runtime, namespace or "default")  # raylint: allow(data-race) installed under _global_lock; unlocked peeks like is_initialized are GIL-atomic snapshots
+            worker = Worker(runtime, namespace or "default")
+            if include_dashboard:
+                from ray_tpu_torch.dashboard import start_dashboard
+                try:
+                    head = start_dashboard(address, port=dashboard_port)
+                except BaseException:
+                    # a failed dashboard must not leave a live runtime
+                    # behind a half-initialized worker (retrying init()
+                    # would then raise "called twice")
+                    runtime.shutdown()
+                    raise
+                worker.dashboard_head = head
+                worker.dashboard_port = head.port
+            _global = worker  # raylint: allow(data-race) installed under _global_lock; unlocked peeks like is_initialized are GIL-atomic snapshots
             return _global
         runtime = Runtime()
         if _create_default_node:
@@ -146,6 +159,10 @@ def init(num_cpus: Optional[float] = None,
                 amounts.update(resources)
             runtime.add_node(ResourceSet(amounts))
         _global = Worker(runtime, namespace or "default")  # raylint: allow(data-race) installed under _global_lock; unlocked peeks like is_initialized are GIL-atomic snapshots
+        if include_dashboard:
+            from ray_tpu_torch._private.state_server import start_state_server
+            # raylint: allow(data-race) dashboard_port set under _global_lock during init
+            _global.dashboard_port = start_state_server(dashboard_port)
         return _global
 
 
@@ -162,6 +179,15 @@ def shutdown():
             logger.warning("shutdown hook failed: %s", e)
     with _global_lock:
         if _global is not None:
+            head = getattr(_global, "dashboard_head", None)
+            if head is not None:
+                try:
+                    head.stop()
+                except Exception as e:
+                    logger.debug("dashboard head stop failed: %s", e)
+            elif getattr(_global, "dashboard_port", None) is not None:
+                from ray_tpu_torch._private.state_server import stop_state_server
+                stop_state_server()
             _global.runtime.shutdown()
             _global = None  # raylint: allow(data-race) cleared under _global_lock at shutdown; unlocked peeks are GIL-atomic snapshots
         global _displaced_auth_token

@@ -7,10 +7,11 @@ targets, reconciles them to running replica actors
 pushes routing tables to handles/proxies via long-poll
 (`_private/long_poll.py`).
 
-Port of ``ray_tpu/serve/controller.py``. Seam: the JAX package registers a
-batched deployment's linger and batch cap as autopilot actuators when
-``autopilot_enabled`` is on; ``autopilot/`` is not ported yet, so such a
-deploy raises ``NotImplementedError`` instead of registering into nothing.
+Port of ``ray_tpu/serve/controller.py``. With ``autopilot_enabled`` on, a
+batched deployment registers its linger and batch cap as autopilot
+actuators (``serve.<name>.linger_ms``, ``serve.<name>.max_batch_size``) in
+this process's registry (``ray_tpu_torch.autopilot``), as the JAX
+package's controller does.
 """
 
 from __future__ import annotations
@@ -53,7 +54,6 @@ class ServeController:
     def deploy(self, name: str, func_or_class, init_args, init_kwargs,
                config_dict: dict, route_prefix: Optional[str] = None) -> None:
         config = DeploymentConfig(**config_dict)
-        self._check_autopilot(name, config)
         with self._lock:
             state = self._deployments.get(name)
             if state is None:
@@ -69,8 +69,10 @@ class ServeController:
                     ROUTE_TABLE_KEY, dict(self._routes))
             state.reconcile()
             self._notify_replicas(state)
+        self._register_autopilot_actuators(name, config)
 
     def delete_deployment(self, name: str) -> None:
+        self._unregister_autopilot_actuators(name)
         with self._lock:
             state = self._deployments.get(name)
             if state is None:
@@ -96,19 +98,49 @@ class ServeController:
 
     # -- autopilot actuators ----------------------------------------------
 
-    @staticmethod
-    def _check_autopilot(name: str, config) -> None:
-        """The JAX package exposes a batched deployment's micro-batch shape
-        (``serve.<name>.linger_ms``, ``serve.<name>.max_batch_size``) to
-        the autopilot when it is enabled. The port has no autopilot yet:
-        refuse rather than leave the knobs unregistered."""
+    def _register_autopilot_actuators(self, name: str, config) -> None:
+        """Expose the deployment's micro-batch shape to the autopilot:
+        ``serve.<name>.linger_ms`` (the batch linger window, actuated
+        from the federated queue_wait p95) and
+        ``serve.<name>.max_batch_size``.  Only batched deployments are
+        exposed, and only when the controller is autopilot-enabled —
+        unregistered knobs are invisible to the policy layer."""
         if getattr(config, "max_batch_size", 1) <= 1 \
                 or not _config.get("autopilot_enabled"):
             return
-        raise NotImplementedError(
-            f"deployment {name!r}: autopilot_enabled registers the batch "
-            "linger and cap as autopilot actuators, and autopilot/ is not "
-            "ported yet: ROADMAP Queue 1 item 8")
+        from ray_tpu_torch.autopilot import actuators as _actuators
+
+        def _get_linger(n=name):
+            with self._lock:
+                state = self._deployments.get(n)
+                return (float(state.config.batch_wait_timeout_s) * 1e3
+                        if state else 0.0)
+
+        def _set_linger(ms, n=name):
+            self.retune_deployment_batch(
+                n, batch_wait_timeout_s=float(ms) / 1e3)
+
+        def _get_max(n=name):
+            with self._lock:
+                state = self._deployments.get(n)
+                return int(state.config.max_batch_size) if state else 1
+
+        def _set_max(v, n=name):
+            self.retune_deployment_batch(n, max_batch_size=int(v))
+
+        reg = _actuators.registry()
+        reg.register(_actuators.Actuator(
+            name=f"serve.{name}.linger_ms", get=_get_linger,
+            set=_set_linger, kind="float", lo=1.0, hi=1000.0))
+        reg.register(_actuators.Actuator(
+            name=f"serve.{name}.max_batch_size", get=_get_max,
+            set=_set_max, kind="int", lo=1, hi=1024))
+
+    def _unregister_autopilot_actuators(self, name: str) -> None:
+        from ray_tpu_torch.autopilot import actuators as _actuators
+        reg = _actuators.registry()
+        reg.unregister(f"serve.{name}.linger_ms")
+        reg.unregister(f"serve.{name}.max_batch_size")
 
     def _membership_info(self, state: DeploymentState,
                          metrics: Optional[dict] = None) -> dict:

@@ -750,12 +750,22 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
 @pytest.mark.parametrize("call", [
     lambda: ray_tpu_torch.init(include_dashboard=True),
 ], ids=["dashboard"])
-def test_paths_not_ported_yet_raise(call):
+def test_paths_not_ported_yet_raise(call, monkeypatch, tmp_path):
+    """The paths this test held as refused have since been ported: each
+    now runs, and ``shutdown()`` leaves nothing behind (the dashboard: the
+    state server's port file is gone)."""
+    from ray_tpu_torch._private import state_server
     ray_tpu_torch.shutdown()
-    with pytest.raises((NotImplementedError, ray_tpu_torch.TaskError),
-                       match="not ported yet"):
-        call()
+    # a session of its own: other test files' drivers share the default
+    monkeypatch.setattr(state_server, "SESSION_DIR", str(tmp_path))
+    monkeypatch.setattr(state_server, "PORT_FILE", str(tmp_path / "port"))
+    w = call()
+    try:
+        assert w.dashboard_port == state_server.discover_port()
+    finally:
+        ray_tpu_torch.shutdown()
     assert not ray_tpu_torch.is_initialized()
+    assert state_server.discover_port() is None
 
 
 def test_get_of_an_object_larger_than_the_store_returns_it():

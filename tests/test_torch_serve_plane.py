@@ -642,17 +642,24 @@ def test_autopilot_actuators_are_refused_for_batched_deployments(instances):
         def __call__(self, x):
             return x
 
+    # autopilot/ is ported: a batched deployment registers its linger and
+    # batch cap as actuators instead of being refused
+    from ray_tpu_torch.autopilot import actuators
+    reg = actuators.registry()
     p.config.set("autopilot_enabled", True)
     try:
-        with pytest.raises(ray_tpu_torch.TaskError) as info:
-            p.serve.run(Batched.bind(), route_prefix=None)
+        hb = p.serve.run(Batched.bind(), route_prefix=None)
         h = p.serve.run(Single.bind(), route_prefix=None)
     finally:
         p.config.set("autopilot_enabled", False)
-    assert isinstance(info.value.cause, NotImplementedError)
-    assert "Queue 1 item 8" in str(info.value.cause)
-    assert "Batched" not in p.serve.status()
+    assert {"serve.Batched.linger_ms", "serve.Batched.max_batch_size"} <= \
+        set(reg.names())
+    assert not [n for n in reg.names() if n.startswith("serve.Single.")]
+    assert "Batched" in p.serve.status()
+    assert hb.remote(3).result(timeout=30) == 3
     assert h.remote(7).result(timeout=30) == 7
+    finish(p, hb, "Batched")
+    assert reg.get("serve.Batched.linger_ms") is None
     finish(p, h, "Single")
 
 
