@@ -321,7 +321,26 @@ Phases, each of which asserts:
    in flight on the GPU daemon by a chaos delay, the daemon SIGKILLed: the
    doctor reads the crash, the task and its trace id from the flight dir,
    and the card's free memory is back within 64 MiB in under 10 s; (e)
-   ``shutdown()`` and ``stop`` on both run dirs leave no process.
+   ``shutdown()`` and ``stop`` on both run dirs leave no process;
+26. the devtools on the card: (a) a process started with
+   ``RAY_TPU_LOCKWATCH=1`` (the lock-order watchdog wraps every lock the
+   package creates) serves phase 16's batched bf16 deployment
+   (``num_gpus=1``) phase 5's 16 requests from 16 threads, 1 + 3 passes,
+   then one ``use_gpu`` ``TorchTrainer`` worker takes 2 steps of phase 8's
+   model, whose (loss, grad norm) follow phase 8's at ``TRAIN_RTOL``; its
+   JSON report must hold zero cycles and zero guard violations, its
+   launches go into the kernels line, and its requests/s is printed beside
+   phase 16's (the watchdog's cost); (b) a guard-band check of the forward,
+   dq and dkv kernels in both dtypes (``fwd_bf16_kernel``/``fwd_kernel``,
+   ``dq_*``, ``dkv_*``), the stand-in for compute-sanitizer, which does
+   not run on that machine: D 16/32/64/128, causal and full, L 200
+   (ragged) and 1024 and Lq 200 / Lk 333, one head, every input and
+   output the middle of a larger buffer whose bands hold 0 in one run and
+   NaN in another; the outputs must be bit-identical between the runs and
+   every band unchanged bit for bit (a read past a tensor shows as a
+   difference, a write past it as a changed band); then 4 heads of 2
+   batches at once must equal each head run alone, bit for bit. Its
+   launches compare and do not count.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -477,6 +496,22 @@ AUTOPILOT_CONFIG = {"autopilot_enabled": True,
                     "autopilot_tick_s": 3600.0}
 DOOMED_DELAY_MS = 60_000         # (d) the chaos delay that holds the task
 MEMORY_BACK_S = 10.0             # (d) the card's memory back within this
+# Phase 26: the devtools. (a) the lockwatch run's report, its measured
+# passes (after one warm-up pass), its deployment's linger, far above the
+# time 16 requests take to arrive, so that every batch fills to
+# max_batch_size with or without the watchdog, and its trainer's steps;
+# (b) the guard-band cases: each band is GUARD_BAND_ROWS rows of the
+# tensor (a tile is at most 128 rows) and at least GUARD_BAND_MIN elements.
+LOCKWATCH_REPORT = "build/lockwatch/report.json"
+LOCKWATCH_PASSES = 5
+LOCKWATCH_LINGER_S = 1.0
+LOCKWATCH_DEADLINE_MS = 60_000.0
+LOCKWATCH_TRAIN_STEPS = 2
+LOCKWATCH_AB_PAIRS = 4
+GUARD_BAND_ROWS = 256
+GUARD_BAND_MIN = 4096
+GUARD_SHAPES = ((200, 200), (1024, 1024), (200, 333))   # (Lq, Lk)
+GUARD_HEADS = (2, 200, 4, 64)                           # (B, L, H, D)
 
 
 def log(msg: str) -> None:
@@ -865,7 +900,7 @@ def device_objects(rt, device, card, side=OBJECT_SIDE):
         f"memory unchanged ({allocated} bytes), and its values equal a "
         f"host-synchronised copy")
 
-    x.add_(1)
+    x.add_(1)   # raylint: allow(jit-stability) the write is the check: get must refuse the ref
     try:
         rt.get(ref)
     except rt.RayTpuError as e:
@@ -1790,10 +1825,12 @@ def _numpy_tree_to_torch(tree, device="cpu"):
 
 
 def lm_trainer_loop(config):
-    """Phase 17 (a) and (b): the training loop a user hands ``TorchTrainer``.
-    It runs in a train worker: it builds ``make_lm_train_step`` on the
-    session's mesh, starts from ``config["seed"]``'s weights or from
-    ``session.get_checkpoint()`` (parameters, AdamW state and step), and
+    """Phases 17 (a), (b) and 26 (a): the training loop a user hands
+    ``TorchTrainer``. It runs in a train worker: it builds
+    ``make_lm_train_step`` on the session's mesh, starts from
+    ``config["params"]`` where given, else from ``config["seed"]``'s
+    weights, or from ``session.get_checkpoint()`` (parameters, AdamW state
+    and step), and
     reports every step; every ``config["ckpt_every"]``-th report carries the
     full state. ``config["fail_at"]``: the first attempt raises after that
     step's report. ``config["timings"]``: a list the loop appends each
@@ -1814,7 +1851,10 @@ def lm_trainer_loop(config):
         assert mesh is not None and set(mesh.shape.values()) == {1}, mesh
     init_fn, step_fn, shard = make_lm_train_step(cfg, mesh, device=device)
     restored = session.get_checkpoint()
-    if restored is None:
+    if restored is None and "params" in config:
+        state = init_fn(params=config["params"])
+        start = 0
+    elif restored is None:
         state = init_fn(torch.Generator(device=device).manual_seed(
             config["seed"]))
         start = 0
@@ -2475,7 +2515,7 @@ def process_runtime_paths(rt, cluster, gpu_index, fa, device, card, rates,
     assert landed == ("cuda:0" if on_card else "cpu"), landed
     written = want.clone()
     ref = rt.put(written)
-    written.add_(1)
+    written.add_(1)   # raylint: allow(jit-stability) the write is the check: get must refuse the ref
     try:
         rt.get(keeper.matches.remote(ref), timeout=300)
     except rt.RayTpuError as e:
@@ -4157,16 +4197,23 @@ def run_gate(name, device):
 
 
 def run_gates(device, processes=RL_GATE_PROCESSES):
-    """Phase 22 (2): every gate of ``RL_GATES``, ``processes`` at a time,
-    each in a spawned process. -> {name: result}."""
+    """Phases 22 (2) and 23 (2): every gate of ``RL_GATES``, then every
+    gate of ``RL_MULTI_GATES``, ``processes`` at a time in one pool, each
+    in a spawned process. Phase 23's gates are short: they run in the slots
+    that phase 22's longest gate leaves free. -> ({name: result} of phase
+    22, {name: result} of phase 23)."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(processes) as pool:
-        results = pool.starmap(run_gate, [(name, str(device))
-                                          for name in RL_GATES], chunksize=1)
+        slice_gates = {name: pool.apply_async(run_gate, (name, str(device)))
+                       for name in RL_GATES}
+        multi_gates = {name: pool.apply_async(run_multi_gate,
+                                              (name, str(device)))
+                       for name in RL_MULTI_GATES}
         pool.close()
         pool.join()
-    return dict(zip(RL_GATES, results))
+        return ({name: r.get() for name, r in slice_gates.items()},
+                {name: r.get() for name, r in multi_gates.items()})
 
 
 def process_warmup(device):
@@ -4194,8 +4241,9 @@ def process_warmup(device):
 
 def rl_slice_phase(fa, device, card):
     """Phase 22: the memory models, IMPALA/APPO, DQN, SAC, TD3 and DDPG
-    with their learners on the card. Returns nothing: no flash kernel
-    runs, and the launch counters must not move."""
+    with their learners on the card; phase 23's gates run in (2)'s pool.
+    Returns those gates' results: no flash kernel runs, and the launch
+    counters must not move."""
     warm = process_warmup(device)
     free_device_caches()
     free_before = torch.cuda.mem_get_info(device)[0]
@@ -4229,9 +4277,10 @@ def rl_slice_phase(fa, device, card):
     del parity, sac
 
     # (2) the learning gates, learners on the card (rollouts on the CPU;
-    # remote workers are CPU actors), RL_GATE_PROCESSES at a time
+    # remote workers are CPU actors), RL_GATE_PROCESSES at a time, phase
+    # 23's after them in the same pool
     t0 = time.perf_counter()
-    gates = run_gates(device)
+    gates, multi_gates = run_gates(device)
     gates_s = time.perf_counter() - t0
     for name, r in gates.items():
         gate = RL_GATES[name][2]
@@ -4249,8 +4298,9 @@ def rl_slice_phase(fa, device, card):
             f"updates, {r['ms_per_update']:.3f} ms each on the host clock), "
             f"sample {r['sample_ms']:.2f} ms and learn {r['learn_ms']:.2f} ms"
             f" an iteration (means of {r['iters']}){reads}")
-    log(f"[rl-slice] (2) {len(gates)} gates in {gates_s:.1f} s, "
-        f"{RL_GATE_PROCESSES} processes at a time")
+    log(f"[rl-slice] (2) {len(gates)} gates and phase 23's "
+        f"{len(multi_gates)} in {gates_s:.1f} s, {RL_GATE_PROCESSES} "
+        f"processes at a time")
 
     # (4) the card's memory is back, and no flash kernel ran
     assert launch_counts(fa) == counts, (launch_counts(fa), counts)
@@ -4269,6 +4319,7 @@ def rl_slice_phase(fa, device, card):
         f"bytes: cuBLAS handles, the profiler, the learners' kernels' code, "
         f"paid before); the flash launch counters did not move; "
         f"phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return multi_gates
 
 
 # -- phase 23: the multi-learner slice of rl/ --------------------------------
@@ -4828,9 +4879,10 @@ def ddppo_nccl(device, iters=DDPPO_NCCL_ITERS):
     return 1e3 * statistics.median(times), len(times), sizes.pop(), seconds
 
 
-def rl_multi_phase(fa, device, card):
+def rl_multi_phase(fa, device, card, gates):
     """Phase 23: the mesh PPO learner, DD-PPO, multi-agent PPO, QMIX, BC,
-    MARWIL and CQL with their learners on the card. Returns nothing: no
+    MARWIL and CQL with their learners on the card; ``gates`` holds the
+    results of (2), which ran in phase 22's pool. Returns nothing: no
     flash kernel runs, and the launch counters must not move."""
     t_phase = time.perf_counter()
     # the process's one-time costs first: each case once on the card (the
@@ -4868,18 +4920,8 @@ def rl_multi_phase(fa, device, card):
             f"card alone (host clock, {RL_TIMED_STEPS} steps or more)")
     del parity, cases
 
-    # (2) the learning gates, learners on the card, RL_GATE_PROCESSES at a
-    # time, each in a spawned process
-    import multiprocessing
-    t0 = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(RL_GATE_PROCESSES) as pool:
-        gates = dict(zip(RL_MULTI_GATES, pool.starmap(
-            run_multi_gate, [(name, str(device)) for name in RL_MULTI_GATES],
-            chunksize=1)))
-        pool.close()
-        pool.join()
-    gates_s = time.perf_counter() - t0
+    # (2) the learning gates, learners on the card, each in a spawned
+    # process of phase 22's pool
     for name, r in gates.items():
         check = RL_MULTI_GATES[name][1]
         assert r["passed"], (name, check, r)
@@ -4890,8 +4932,7 @@ def rl_multi_phase(fa, device, card):
         log(f"[times] {card}: {name}, {RL_GATE_PROCESSES} gates at a time: "
             f"{rate}{r['updates_per_s']:.1f} updates/s ({r['updates']} "
             f"updates, {r['ms_per_update']:.3f} ms each on the host clock)")
-    log(f"[rl-multi] (2) {len(gates)} gates in {gates_s:.1f} s, "
-        f"{RL_GATE_PROCESSES} processes at a time")
+    log(f"[rl-multi] (2) {len(gates)} gates, run in phase 22's pool")
 
     # (3) DD-PPO over the nccl backend, the two workers folded on the card
     ms, calls, floats, seconds = ddppo_nccl(device)
@@ -5466,7 +5507,7 @@ def autoscaler_step(rt, fa, device, card, want, width, node_type=None,
                     break
                 except KeyError:
                     assert time.perf_counter() - t0 < 60, "not registered"
-                    time.sleep(0.05)
+                    time.sleep(0.05)  # raylint: allow(bare-retry) deadline-bounded registration poll, not a failure retry
             registered_s = time.perf_counter() - t0
             procs += [d["proc"] for d in cluster.daemons]
             # update() goes on while the task runs, as a monitor's would:
@@ -5578,7 +5619,7 @@ def finish_modules(*started, timeout_s=SUBPROCESS_TIMEOUT_S):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join()  # raylint: allow(deadline-drop) each thread's communicate() is bounded by timeout_s
     for (proc, _), got in zip(started, done):
         assert got is not None and proc.returncode == 0, (
             proc.args[2:], proc.returncode, got and got[1][-3000:],
@@ -5936,6 +5977,325 @@ def autopilot_serve(serve, head, address, device, requests, direct, dense,
                           p95_after=p95_after)
 
 
+def lockwatch_child(args_json: str) -> None:
+    """Phase 26 (a), in a process of its own: phase 16's batched bf16
+    deployment answers phase 5's requests from ``n_requests`` threads in
+    full batches, a warm-up pass and ``LOCKWATCH_PASSES`` measured ones.
+    With ``args["watch"]`` (``RAY_TPU_LOCKWATCH`` installed the watchdog,
+    which writes its report at exit), one ``use_gpu`` worker then trains
+    phase 8's model for ``LOCKWATCH_TRAIN_STEPS`` steps. Prints one
+    ``[lockwatch-run]`` JSON line."""
+    args = json.loads(args_json)
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.devtools import lockwatch
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train import TorchTrainer
+
+    assert lockwatch.installed() == args["watch"], lockwatch.installed()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    device = torch.device(args["device"])
+    width, n_requests = args["width"], args["n_requests"]
+    on_card = device.type == "cuda"
+    config = {k: str(REPO / v) for k, v in RUNTIME_CONFIG.items()}
+    # a request waits in full batches for the linger and the batches
+    # before it; none is shed
+    config["serve_queue_deadline_ms"] = LOCKWATCH_DEADLINE_MS
+    out = {}
+    rt.init(num_cpus=8, _system_config=config)
+    try:
+        _, lengths, requests, cfg32, params = serve_inputs(device, width,
+                                                           n_requests)
+        cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+        params16 = transformer.cast_params(params, torch.bfloat16)
+        del params
+        n_layers, full = cfg16.n_layers, BATCH_BUCKETS[-1]
+        lm = serve.deployment(
+            ServedLM, name="lm26", max_batch_size=full,
+            batch_wait_timeout_s=LOCKWATCH_LINGER_S,
+            pad_batch_to=BATCH_BUCKETS, target_latency_ms=SERVE_BUDGET_MS,
+            ray_actor_options={"num_gpus": 1 if on_card else 0})
+        h = serve.run(lm.bind(cfg16, params16, "numpy", device),
+                      route_prefix=None)
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        serve_all(lambda r: h.remote(r).result(timeout=300), requests)
+        seconds = []
+        for _ in range(LOCKWATCH_PASSES):
+            answers, s = serve_all(
+                lambda r: h.remote(r).result(timeout=300), requests)
+            assert all(np.isfinite(a).all() for a in answers), \
+                "non-finite logits"
+            seconds.append(s)
+        sizes, _ = h.stats.remote().result(timeout=60)
+        assert sizes == [full] * (len(sizes)), sizes
+        assert len(sizes) == (1 + LOCKWATCH_PASSES) * n_requests // full, \
+            sizes
+        # a wrapper launches (and counts) its kernel on the card only
+        assert fa.launches == on_card * n_layers * len(sizes), (
+            fa.launches, sizes)
+        out["batches"] = len(sizes)
+        out["seconds"] = seconds
+        out["rps"] = n_requests / statistics.median(seconds)
+        serve.delete("lm26")
+
+        if args["watch"]:
+            flash, params, tokens = parity_inputs(
+                device, args["parity_width"], tuple(args["parity_batch"]))
+            trainer = TorchTrainer(
+                lm_trainer_loop, train_loop_config=dict(
+                    width=args["parity_width"], dtype=torch.float32,
+                    device=str(device), params=params, tokens=tokens,
+                    steps=LOCKWATCH_TRAIN_STEPS,
+                    ckpt_every=LOCKWATCH_TRAIN_STEPS + 1, timings=[]),
+                scaling_config=ScalingConfig(num_workers=1,
+                                             use_gpu=on_card),
+                results_timeout_s=TRAINER_TIMEOUT_S)
+            before = launch_counts(fa)
+            result = trainer.fit()
+            assert result.error is None, result.error
+            got = [(m["loss"], m["grad_norm"])
+                   for m in result.metrics_history]
+            np.testing.assert_allclose(
+                got, args["parity"][:LOCKWATCH_TRAIN_STEPS], rtol=TRAIN_RTOL)
+            n = args["parity_width"]["n_layers"]
+            per_step = ((2 if flash.remat else 1) * n, n, n)
+            trained = tuple(a - b for a, b in zip(launch_counts(fa), before))
+            assert trained == tuple(on_card * LOCKWATCH_TRAIN_STEPS * c
+                                    for c in per_step), trained
+            out["train"] = got
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    out["launches"] = launch_counts(fa)
+    print("[lockwatch-run] " + json.dumps(out), flush=True)
+
+
+def lockwatch_run(device, watch, parity, width=SERVE_WIDTH,
+                  n_requests=N_REQUESTS):
+    """``lockwatch_child`` in a process of its own, with ``RAY_TPU_LOCKWATCH``
+    (its report at ``LOCKWATCH_REPORT``) or without it. -> (its
+    ``[lockwatch-run]`` dict, the process's seconds)."""
+    import os
+    args = json.dumps({"device": device.type, "width": width,
+                       "n_requests": n_requests, "watch": watch,
+                       "parity_width": PARITY_WIDTH,
+                       "parity_batch": list(PARITY_BATCH),
+                       "parity": [list(p) for p in parity]})
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAY_TPU_LOCKWATCH")}
+    if watch:
+        report = REPO / LOCKWATCH_REPORT
+        report.parent.mkdir(parents=True, exist_ok=True)
+        report.unlink(missing_ok=True)
+        env.update(RAY_TPU_LOCKWATCH="1", RAY_TPU_LOCKWATCH_OUT=str(report))
+    t0 = time.perf_counter()
+    text = run_python("import chip_smoke as cs; "
+                      f"cs.lockwatch_child({args!r})", env=env)
+    return json_line(text, "[lockwatch-run]"), time.perf_counter() - t0
+
+
+def lockwatch_ab(pairs=LOCKWATCH_AB_PAIRS):
+    """The watchdog's cost on phase 26 (a)'s serving, as phase 26 cannot
+    afford to measure it: ``pairs`` pairs of ``lockwatch_run`` on the card,
+    with and without the watchdog, the side that runs first alternating.
+    Prints each process's requests/s and each side's median and range.
+    Run on the card: ``python3 -c "import chip_smoke as cs;
+    cs.lockwatch_ab()"``."""
+    from ray_tpu_torch.ops import _build
+    _build.build()
+    device = torch.device("cuda")
+    log(card_line())
+    parity = train_parity_phase(device)
+    rates = {True: [], False: []}
+    for i in range(pairs):
+        for watch in ((False, True) if i % 2 == 0 else (True, False)):
+            got, _ = lockwatch_run(device, watch, parity)
+            rates[watch].append(got["rps"])
+            log(f"[lockwatch-ab] pair {i + 1}, "
+                f"{'with' if watch else 'without'} the watchdog: "
+                f"{got['rps']:.2f} requests/s (pass ms "
+                f"{[round(1e3 * s, 1) for s in got['seconds']]})")
+    for watch, name in ((True, "with"), (False, "without")):
+        r = rates[watch]
+        log(f"[lockwatch-ab] {name} the watchdog: median "
+            f"{statistics.median(r):.2f} requests/s, range "
+            f"{min(r):.2f}-{max(r):.2f} over {pairs} processes")
+
+
+def lockwatch_phase(fa, device, card, plane_rps, parity, width=SERVE_WIDTH,
+                    n_requests=N_REQUESTS):
+    """Phase 26 (a): ``lockwatch_child`` in a process of its own under the
+    watchdog, whose report must hold no cycle and no guard violation; then
+    the same child's serving part in a process without it. One pair:
+    processes of the same code differ more than the two sides do, so the
+    watchdog's cost is ``lockwatch_ab``'s to measure. Returns the two
+    processes' (forward, dq, dkv) launches."""
+    got, child_s = lockwatch_run(device, True, parity, width, n_requests)
+    rep = json.loads((REPO / LOCKWATCH_REPORT).read_text())
+    assert rep["wrapped_locks"] > 0, rep["wrapped_locks"]
+    assert rep["cycles"] == [], rep["cycles"]
+    assert rep["guard_violations"] == [], rep["guard_violations"]
+    plain, plain_s = lockwatch_run(device, False, parity, width, n_requests)
+    assert plain["batches"] == got["batches"], (plain, got)
+    launches = tuple(a + b for a, b in zip(got["launches"],
+                                           plain["launches"]))
+    assert all(c > 0 for c in launches) or device.type != "cuda", launches
+    passes = (f"{n_requests} bf16 requests x {LOCKWATCH_PASSES} passes "
+              f"from {n_requests} threads, {got['batches']} full batches of "
+              f"{BATCH_BUCKETS[-1]} with the warm-up pass")
+    log(f"[lockwatch] (a) RAY_TPU_LOCKWATCH=1 process ({child_s:.1f} s): "
+        f"{passes} through a num_gpus=1 batched deployment, then "
+        f"{LOCKWATCH_TRAIN_STEPS} TorchTrainer steps of phase 8's model, "
+        f"(loss, grad norm) {got['train']} on phase 8's at {TRAIN_RTOL}; "
+        f"report: {rep['wrapped_locks']} locks wrapped, "
+        f"{len(rep['edges'])} order edges, 0 cycles, 0 guard violations, "
+        f"{len(rep['long_holds'])} holds over the threshold; launches "
+        f"(forward, dq, dkv) {tuple(got['launches'])}")
+    log(f"[lockwatch] (a) the same serving without the watchdog "
+        f"({plain_s:.1f} s): {passes}; launches (forward, dq, dkv) "
+        f"{tuple(plain['launches'])}")
+    ms = ", ".join(f"{1e3 * w:.1f} / {1e3 * p:.1f}"
+                   for w, p in zip(got["seconds"], plain["seconds"]))
+    log(f"[times] {card}: bf16 serving through the Serve plane from "
+        f"{n_requests} threads in full batches: {got['rps']:.2f} requests/s"
+        f" under lockwatch, {plain['rps']:.2f} without it in the same code"
+        f" ({got['rps'] / plain['rps']:.3f} x; medians of "
+        f"{LOCKWATCH_PASSES} passes, ms with / without: {ms}); phase 16 "
+        f"without it {plane_rps:.2f} requests/s (batches as they came)")
+    return launches
+
+
+def _band(row):
+    """Elements of each band around a tensor whose rows hold ``row``
+    elements: whole 64-element runs, so a bf16 view in the middle stays
+    16-byte aligned."""
+    pad = max(GUARD_BAND_MIN, GUARD_BAND_ROWS * row)
+    return -(-pad // 64) * 64
+
+
+def _banded(shape, dtype, device, fill):
+    """(buffer, band, view): ``view`` of ``shape`` in the middle of
+    ``buffer``, whose bands of ``band`` elements each side hold ``fill``."""
+    n = math.prod(shape)
+    band = _band(math.prod(shape[2:]) if len(shape) == 4 else shape[-1])
+    buf = torch.full((band + n + band,), fill, dtype=dtype, device=device)
+    return buf, band, buf[band:band + n].view(shape)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def guarded_launch(run, symbol, ins, outs, causal, scale, fill):
+    """One kernel launch with every input copied into the middle of a
+    banded buffer and every output written into one. ``run`` launches
+    ``symbol`` on the tensors; ``outs`` are (shape, dtype). Returns the
+    outputs (copies) and fails if a band changed."""
+    device = ins[0].device
+    placed, views = [], []
+    for t in ins:
+        buf, band, view = _banded(tuple(t.shape), t.dtype, device, fill)
+        view.copy_(t)
+        placed.append((buf, band))
+        views.append(view)
+    out_views = []
+    for shape, dtype in outs:
+        buf, band, view = _banded(tuple(shape), dtype, device, fill)
+        placed.append((buf, band))
+        out_views.append(view)
+    run(symbol, views + out_views, views[0], views[1], causal, scale)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for buf, band in placed:
+        want = _bits(torch.full((band,), fill, dtype=buf.dtype,
+                                device=device))
+        bits = _bits(buf)
+        assert torch.equal(bits[:band], want), f"{symbol}: band before " \
+            f"a tensor changed (fill {fill})"
+        assert torch.equal(bits[-band:], want), f"{symbol}: band after " \
+            f"a tensor changed (fill {fill})"
+    return [v.clone() for v in out_views]
+
+
+def guarded_case(fa, run, q, k, v, do, causal, fill):
+    """The forward, dq and dkv kernels on banded buffers filled with
+    ``fill``: (O, LSE, dQ, dK, dV)."""
+    fa._check_kernel_inputs(q, k, v)
+    B, Lq, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    o, lse = guarded_launch(
+        run, "ray_tpu_torch_flash_attention_fwd", [q, k, v],
+        [(q.shape, q.dtype), ((B, H, Lq), torch.float32)], causal, scale,
+        fill)
+    assert torch.isfinite(o).all().item() and \
+        torch.isfinite(lse).all().item(), "non-finite forward"
+    delta = fa.attention_delta(o, do)
+    (dq,) = guarded_launch(
+        run, "ray_tpu_torch_flash_attention_dq", [q, k, v, do, lse, delta],
+        [(q.shape, q.dtype)], causal, scale, fill)
+    dk, dv = guarded_launch(
+        run, "ray_tpu_torch_flash_attention_dkv",
+        [q, k, v, do, lse, delta], [(k.shape, k.dtype), (v.shape, v.dtype)],
+        causal, scale, fill)
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        assert torch.isfinite(t).all().item(), f"non-finite {name}"
+    return o, lse, dq, dk, dv
+
+
+def guard_band_phase(fa, device, run=None):
+    """Phase 26 (b): every case with 0 bands and with NaN bands; outputs
+    bit-identical between the two and no band changed; then a multi-head
+    run against its heads run alone. ``run`` launches a kernel (the
+    wrappers' ``_run_kernel``; a CPU rehearsal passes a plain stand-in).
+    Returns the number of kernel launches it made."""
+    run = run or fa._run_kernel
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+    n_launch, n_cases = 0, 0
+    names = ("O", "LSE", "dQ", "dK", "dV")
+    for dt in (torch.bfloat16, torch.float32):
+        for D in (16, 32, 64, 128):
+            for Lq, Lk in GUARD_SHAPES:
+                for causal in (True, False):
+                    q, k, v = random_qkv(gen, 1, Lq, Lk, 1, D, dt, device)
+                    do = torch.randn(q.shape, generator=gen,
+                                     device=device).to(dt)
+                    zero = guarded_case(fa, run, q, k, v, do, causal, 0.0)
+                    nan = guarded_case(fa, run, q, k, v, do, causal,
+                                       float("nan"))
+                    case = (f"Lq={Lq} Lk={Lk} D={D} {dt} "
+                            f"causal={causal}")
+                    for name, a, b in zip(names, zero, nan):
+                        assert torch.equal(_bits(a), _bits(b)), \
+                            f"{name} depends on memory past a tensor: {case}"
+                    n_launch += 6
+                    n_cases += 1
+    B, L, H, D = GUARD_HEADS
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = random_qkv(gen, B, L, L, H, D, dt, device)
+        do = torch.randn(q.shape, generator=gen, device=device).to(dt)
+        whole = guarded_case(fa, run, q, k, v, do, True, float("nan"))
+        n_launch += 3
+        for h in range(H):
+            one = guarded_case(
+                fa, run, *(t[:, :, h:h + 1].contiguous()
+                           for t in (q, k, v, do)), True, float("nan"))
+            n_launch += 3
+            for name, a, b in zip(names, whole, one):
+                part = a[:, h:h + 1] if name == "LSE" else a[:, :, h:h + 1]
+                assert torch.equal(_bits(part.contiguous()), _bits(b)), \
+                    f"{name} of head {h} differs run alone: {dt}"
+    log(f"[guard-band] (b) {n_cases} single-head cases (bf16 and f32; D 16"
+        f"/32/64/128; L {GUARD_SHAPES}; causal and full) with 0 and with "
+        f"NaN bands around every input and output: O, LSE, dQ, dK and dV "
+        f"bit-identical between the fills and every band unchanged; "
+        f"{B} x {H} heads at L={L} D={D} equal each head run alone, bit "
+        f"for bit; {n_launch} comparison launches, not counted")
+    return n_launch
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -5945,10 +6305,20 @@ def main() -> int:
     device = torch.device("cuda")
 
     # 1. device
+    t_last, laps = time.perf_counter(), []
+
+    def lap(phase):
+        """Phase ``phase`` ended: its seconds since the previous one."""
+        nonlocal t_last
+        now = time.perf_counter()
+        laps.append((phase, now - t_last))
+        t_last = now
+
     card = card_line()
     log(card)
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
+    lap(1)
 
     # 2. build
     from ray_tpu_torch.ops import _build
@@ -5959,10 +6329,12 @@ def main() -> int:
         for line in ptxas_summary(r.log):
             log(f"[build]   {line}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+    lap(2)
 
     # 3. kernels against their plain versions
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     check_kernel(fa, device)
+    lap(3)
 
     # 4. entry point
     from ray_tpu_torch.entry import CONFIG, entry
@@ -5976,6 +6348,7 @@ def main() -> int:
     log(f"[entry] flagship forward {tuple(logits.shape)} finite, "
         f"{CONFIG.n_layers} kernel launches")
     del fn, args, logits
+    lap(4)
 
     # 5. the serving path (the main path; launches counted here)
     served = serve_phase(fa, device)
@@ -5985,6 +6358,7 @@ def main() -> int:
         f"{SERVE_RUNS} runs of {N_REQUESTS} requests, {served['n_tokens']} "
         f"real tokens each, {seconds:.4f} s); one 8 x 1024 batch forward "
         f"{served['forward_ms']:.3f} ms")
+    lap(5)
 
     # 6. kernel times at the serving shape
     B, L, H = BATCH_BUCKETS[-1], LENGTH_BUCKETS[-1], SERVE_WIDTH["n_heads"]
@@ -6011,12 +6385,15 @@ def main() -> int:
         f"{100 * served['n_layers'] * ms / served['forward_ms']:.1f}% of "
         f"the batch forward")
     del q, k, v, qt, kt, vt
+    lap(6)
 
     # 7. backward kernels against their plain versions
     check_backward(fa, device)
+    lap(7)
 
     # 8. f32 training through the kernels against dense attention
     parity = train_parity_phase(device)
+    lap(8)
 
     # 9. the training path (the kernels line's launches are counted here)
     trained = train_phase(fa, device)
@@ -6024,6 +6401,7 @@ def main() -> int:
         f"(median of {TRAIN_STEPS}), {trained['tokens_per_s']:.0f} tokens/s,"
         f" {trained['model_tflops']:.1f} model TFLOP/s (6 x params x tokens),"
         f" peak memory {trained['peak_bytes'] / 2**30:.2f} GiB")
+    lap(9)
 
     # 10. backward kernel times at the training shape
     bwd = backward_times(fa, device, B, L, H, D, dt)
@@ -6043,9 +6421,11 @@ def main() -> int:
         f"forward + "
         f"{n} dq + {n} dkv launches = {100 * share:.1f}% of the "
         f"{step_ms:.3f} ms step: {split}")
+    lap(10)
 
     # 11. ResNet, card against CPU in f32 (TF32 is off above)
     resnet_parity_phase(device)
+    lap(11)
 
     # 12. ResNet training at full width (the image path; no flash kernel)
     torch.backends.cudnn.benchmark = True   # the bench's setting
@@ -6059,6 +6439,7 @@ def main() -> int:
             f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
     assert launch_counts(fa) == (0, 0, 0), launch_counts(fa)
     torch.cuda.empty_cache()    # the bench's process needs the memory
+    lap(12)
 
     # 13. the port's bench, as a user runs it
     from ray_tpu_torch import bench
@@ -6071,6 +6452,7 @@ def main() -> int:
         f"9 {step_ms:.3f} ms; launches (forward, dq, dkv) {got} in "
         f"{lm['steps_run']} steps")
     log(json.dumps(head))
+    lap(13)
 
     # 14. the sharded step: dry run on every card, then a world of one
     torch.cuda.empty_cache()
@@ -6081,11 +6463,13 @@ def main() -> int:
         f"{step_ms:.3f} ms; in turns (median of {2 * STEP_PAIRS} each): "
         f"sharded {paired['sharded']:.3f} ms, one-device "
         f"{paired['one-device']:.3f} ms")
+    lap(14)
 
     # 15. the in-process runtime: device objects, the serving path from a
     # GPU actor (launches counted there), a GPU task
     torch.cuda.empty_cache()
     runtime = runtime_phase(fa, device, card, N_REQUESTS / seconds)
+    lap(15)
 
     # 16. the Serve plane: controller, replicas, router, handles and the
     # HTTP proxy (launches counted in each sub-phase)
@@ -6093,6 +6477,7 @@ def main() -> int:
     plane = serve_plane_phase(fa, device, card, N_REQUESTS / seconds,
                               runtime["actor_rps"])
     log(f"[serve-plane] phase 16 in {time.perf_counter() - t0:.1f} s")
+    lap(16)
 
     # 17. TorchTrainer: the training path from GPU train workers (launches
     # counted in each of (a)-(c))
@@ -6101,6 +6486,7 @@ def main() -> int:
     trainer_launches, trainer_ms = trainer_phase(fa, device, card, step_ms,
                                                  parity)
     log(f"[trainer] phase 17 in {time.perf_counter() - t0:.1f} s")
+    lap(17)
 
     # 18. the multi-process runtime: the serving path from a GPU actor in a
     # daemon process (its launches counted in that process)
@@ -6110,6 +6496,7 @@ def main() -> int:
         "direct": N_REQUESTS / seconds, "actor": runtime["actor_rps"],
         "plane_threads": plane["threads"], "plane_single": plane["single"]})
     log(f"[process-runtime] phase 18 in {time.perf_counter() - t0:.1f} s")
+    lap(18)
 
     # 19. the tensor plane: TorchTrainer training in a GPU daemon, a Serve
     # replica there from its checkpoint (launches counted in the daemon),
@@ -6122,6 +6509,7 @@ def main() -> int:
         "daemon_threads": daemon_rates[f"from {N_REQUESTS} threads"],
         "daemon_single": daemon_rates["from one thread"]})
     log(f"[plane] phase 19 in {time.perf_counter() - t0:.1f} s")
+    lap(19)
 
     # 20. the data plane: BatchPredictor over a tabular dataset and
     # TorchTrainer(datasets=) fed through iter_device_batches (launches
@@ -6132,26 +6520,32 @@ def main() -> int:
         fa, device, card, (N_REQUESTS / seconds, served["n_tokens"] / seconds),
         trained, trainer_ms)
     log(f"[data] phase 20 in {time.perf_counter() - t0:.1f} s")
+    lap(20)
 
     # 21. the RL path: PPO's learner on the card, directly, through tune.run
     # and fed by remote rollout workers (no flash kernel runs)
     free_device_caches()
     rl_phase(fa, device, card)
+    lap(21)
 
     # 22. the memory models, IMPALA/APPO, DQN, SAC, TD3 and DDPG, each
-    # learner on the card (no flash kernel runs)
-    rl_slice_phase(fa, device, card)
+    # learner on the card (no flash kernel runs), and phase 23's gates
+    multi_gates = rl_slice_phase(fa, device, card)
+    lap(22)
 
     # 23. the mesh PPO learner, DD-PPO, multi-agent PPO, QMIX, BC, MARWIL
-    # and CQL, each learner on the card (no flash kernel runs)
+    # and CQL, each learner on the card (no flash kernel runs; its gates
+    # ran in phase 22's pool)
     free_device_caches()
-    rl_multi_phase(fa, device, card)
+    rl_multi_phase(fa, device, card, multi_gates)
+    lap(23)
 
     # 24. the leaf libraries (workflow, Ray Client, Pool, joblib, jobs, the
     # state API) and the autoscaler, each driving phase 5's model (forward
     # launches counted in every process that ran one)
     free_device_caches()
     leaf_launches = leaf_phase(fa, device, card, N_REQUESTS / seconds)
+    lap(24)
 
     # 25. a cluster started by the CLI, the dashboard head with the
     # autopilot retuning a batched deployment on the GPU node, the CLI's top
@@ -6159,11 +6553,29 @@ def main() -> int:
     # counted here and in the GPU daemon)
     free_device_caches()
     cli_launches = autopilot_phase(fa, device, card)
+    lap(25)
+
+    # 26. the devtools: (a) the serving and training paths under the
+    # lock-order watchdog in a process of its own, then the serving path
+    # in one without it (launches counted in both), (b) the kernels' guard
+    # bands (comparison launches)
+    t0 = time.perf_counter()
+    free_device_caches()
+    lockwatch_launches = lockwatch_phase(fa, device, card, plane["threads"],
+                                         parity)
+    counted = launch_counts(fa)
+    guard_band_phase(fa, device)
+    assert launch_counts(fa) == counted, "a guard-band launch was counted"
+    log(f"[devtools] phase 26 in {time.perf_counter() - t0:.1f} s")
+    lap(26)
+    log("[phases] seconds each (host clock): " + ", ".join(
+        f"{p} {t:.1f}" for p, t in laps) +
+        f"; {sum(t for _, t in laps):.1f} in all")
 
     fwd_launches, dq_launches, dkv_launches = (
-        a + b + c + d for a, b, c, d in zip(trained["launches"],
-                                            trainer_launches, plane_launches,
-                                            data_launches))
+        a + b + c + d + e for a, b, c, d, e in zip(
+            trained["launches"], trainer_launches, plane_launches,
+            data_launches, lockwatch_launches))
     fwd_launches += daemon_launches + leaf_launches + cli_launches
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

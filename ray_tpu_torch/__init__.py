@@ -30,9 +30,16 @@ asking for CUDA where there is none raises rather than falling back.
 
 from __future__ import annotations
 
+import os as _os
 from typing import Optional, Union
 
-import torch
+if _os.environ.get("RAY_TPU_LOCKWATCH"):
+    # Must install before any submodule import so module-level locks are
+    # wrapped too; see ray_tpu_torch/devtools/lockwatch.py.
+    from ray_tpu_torch.devtools import lockwatch as _lockwatch
+    _lockwatch.install()
+
+import torch  # noqa: E402
 
 __version__ = "0.1.0"
 

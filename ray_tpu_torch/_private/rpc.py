@@ -32,6 +32,14 @@ from ray_tpu_torch.protocol import pb
 # raylint: hot-path  (payload plane: R8 flags hidden payload copies)
 logger = logging.getLogger("ray_tpu")
 
+# Runtime half of R19: under RAY_TPU_LOCKWATCH, synchronous RPC waits and
+# handler executions become pseudo-lock sites (``rpc:<METHOD>``) in the
+# lockwatch order graph, so a lock held across the wire closes the same
+# CYCLE the static rule names. None (the default) keeps this a dead branch.
+_lockwatch = None
+if os.environ.get("RAY_TPU_LOCKWATCH"):
+    from ray_tpu_torch.devtools import lockwatch as _lockwatch
+
 MAX_FRAME = 1 << 31  # 2 GiB hard cap per frame
 _LEN = struct.Struct(">I")
 
@@ -258,6 +266,8 @@ class RpcClient:
                 env.trace = tctx
         if perf.ENABLED:
             t0 = time.monotonic()
+        if _lockwatch is not None and _lockwatch.installed():
+            _lockwatch.rpc_client_wait(f"rpc:{_method_name(method)}")
         try:
             self._send(env, raw=raw)
             if not pending.event.wait(timeout):
@@ -765,6 +775,10 @@ class RpcServer:
         token = None
         if observability.ENABLED and ctx.trace:
             token = observability.adopt_wire(ctx.trace)
+        lw_token = None
+        if _lockwatch is not None and _lockwatch.installed():
+            lw_token = _lockwatch.rpc_handler_enter(
+                f"rpc:{_method_name(ctx.method)}")
         try:
             if token is not None:
                 with observability.span(f"rpc:{_method_name(ctx.method)}",
@@ -778,6 +792,8 @@ class RpcServer:
                              if ctx.method in pb.Method.values() else ctx.method)
             ctx.reply_error(f"{type(e).__name__}: {e}")
         finally:
+            if lw_token is not None:
+                _lockwatch.rpc_handler_exit(lw_token)
             if token is not None:
                 observability.reset(token)
 

@@ -60,7 +60,7 @@ class _Conn:
         self.sock = sock
         self.wlock = wlock
         self.channels: Set[str] = set()
-        self._frames: collections.deque = collections.deque()
+        self._frames: collections.deque = collections.deque()  # raylint: guarded-by(self._cv)
         self._cv = threading.Condition()
         self._closed = False
         self._thread = threading.Thread(
@@ -240,6 +240,7 @@ class StateService:
             seq=0, method=pb.PUBLISH, body=pb.Event(
                 channel=channel, kind=kind, payload=payload,
                 ts_ms=_now_ms()).SerializeToString()))
+        # raylint: allow(guarded-by) every caller holds self._lock: the handlers run from _handle's dispatch table under it, _sweep_heartbeats from serve() under it
         for c in self._conns.values():
             if channel in c.channels:
                 c.send(data)

@@ -110,6 +110,7 @@ class ProcessCluster:
             futs = [ex.submit(self._spawn) for _ in range(num_daemons)]
         for f in futs:
             if f.exception() is None:
+                # raylint: allow(deadline-drop) the executor's with-exit joined every future: result() returns at once
                 self.daemons.append(f.result())
         failed = [f.exception() for f in futs if f.exception() is not None]
         if failed:

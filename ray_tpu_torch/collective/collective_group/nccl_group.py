@@ -369,6 +369,7 @@ class NCCLGroupShared:
             return {r: None for r in range(self.world_size)}
         xs = [slots[r].contiguous() for r in range(self.world_size)]
         if self.distinct and self.rank_devices[0].type == "cuda":
+            # raylint: allow(collective-divergence) one thread runs the op for every rank of the in-process group: the branch picks the whole group's backend
             return self._run_nccl_op(xs, op_desc)
         return self._run_folded_op(xs, op_desc)
 

@@ -343,6 +343,7 @@ class NCCLProcessGroup:
         else:
             # gloo has no reduce-scatter: reduce whole, keep this rank's rows
             full = x.clone()
+            # raylint: allow(collective-divergence) the shape check above is rank-uniform: every rank contributes a tensor of the group's one shape
             dist.all_reduce(full, op=_DIST_OP[op])
             out = full[rows].clone()
         self._comms_post(ctx)
@@ -440,6 +441,7 @@ class NCCLProcessGroup:
             if time.monotonic() > deadline:
                 raise TimeoutError(f"recv from rank {src_rank} timed out")
             if not hasattr(rt, "p2p_wait"):
+                # raylint: allow(bare-retry) deadline-bounded KV poll for a peer's payload, not a failure retry
                 time.sleep(0.005)
 
     def destroy(self):

@@ -150,6 +150,7 @@ def _dryrun_body(n_devices: int, device_type: str) -> Dict[str, float]:
             x = distribute_tensor(draw(6, (64, 16)), dm, rep)
             router.requires_grad_(True)
             w.requires_grad_(True)
+            # raylint: allow(collective-divergence) the MoE's all_to_all runs over mesh_ep's groups, whose members are exactly the ranks < ep
             y = moe_apply(x, router, {"w": w},
                           lambda p, t: torch.tanh(t @ p["w"]), mesh_ep,
                           capacity_factor=2.0)

@@ -232,7 +232,7 @@ def _rank_main(inbox, rank, n, device_type, port, results):
         finally:
             dist.destroy_process_group()
         results.put(("ok", rank, out if rank == 0 else None))
-    except BaseException:   # reported to the parent, which raises it
+    except BaseException:   # raylint: allow(swallow) the traceback goes to the parent, which raises it
         results.put(("error", rank, traceback.format_exc()))
 
 
@@ -293,6 +293,7 @@ def run_spmd(fn: Callable, n: int, device: DeviceLike = None,
                 p.join(timeout=5 if len(reported) == n else 0)
                 if p.is_alive():
                     p.kill()
+                    # raylint: allow(deadline-drop) a SIGKILLed child is reaped at once
                     p.join()
         for q in inboxes + [results]:
             q.close()

@@ -239,7 +239,7 @@ def test_a_killed_daemon_is_restarted_by_its_supervisor(heads):
         if new != old and cluster._running(new):
             break
         assert time.monotonic() < deadline, "no restart"
-        time.sleep(0.2)
+        time.sleep(0.2)  # raylint: allow(bare-retry) deadline-bounded restart poll, not a failure retry
     # the restarted daemon registers as a fresh node
     client = cluster.status(run_dir=d)
     assert sum(n["alive"] for n in client["nodes"]) >= 1

@@ -196,6 +196,10 @@ def test_the_doctor_collects_through_the_port_head(cluster):
 
 def test_an_autopilot_enabled_head_hosts_the_controller(cluster):
     c, _ = cluster
+    # The controller's tick acts on this process's knobs (from whatever the
+    # comms and goodput ledgers hold, earlier test modules' ops included):
+    # put every knob back after, or a later module's collectives run q8.
+    saved = dict(_config._values)
     was = _config.get("autopilot_enabled")
     _config.set("autopilot_enabled", True)
     try:
@@ -215,6 +219,7 @@ def test_an_autopilot_enabled_head_hosts_the_controller(cluster):
         for name in list(actuators.registry().names()):
             if not name.startswith("serve."):
                 actuators.registry().unregister(name)
+        _config._values = saved
     assert head.autopilot is None
 
 

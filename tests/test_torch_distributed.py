@@ -287,8 +287,8 @@ def restart_state_service(pkg, cluster):
     while time.monotonic() < deadline and out is None:
         try:
             out = pkg.get([f.remote(i) for i in range(4)], timeout=20)
-        except Exception:  # noqa: BLE001 — the reconnection window
-            time.sleep(0.5)
+        except Exception:  # noqa: BLE001 # raylint: allow(swallow) the reconnection window: retried until the deadline
+            time.sleep(0.5)  # raylint: allow(bare-retry) deadline-bounded reconnection poll
     second = pkg.get(k.bump.remote(), timeout=60)
     pkg.kill(k)
     return first, out, second
@@ -327,7 +327,7 @@ def kill_daemon(pkg, cluster):
         try:
             bumped = pkg.get(s.bump.remote(), timeout=10)
         except pkg.exceptions.RayTpuError:
-            time.sleep(0.5)
+            time.sleep(0.5)  # raylint: allow(bare-retry) deadline-bounded restart poll
     pkg.kill(s)
     cluster.add_daemon()  # two live daemons again, for the drain
     return (sorted(i for _, i in results),

@@ -16,6 +16,9 @@ phase 15.
 import asyncio
 import gc
 import importlib
+import os
+import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -652,13 +655,27 @@ def test_mutated_device_object_is_refused(port, writer):
     assert port.get(port.put(x)) is x  # a new put seals the new version
 
 
-def test_runtime_files_stay_under_their_configured_dirs(port, runtime_dirs):
+def test_runtime_files_stay_under_their_configured_dirs(tmp_path):
     """The flight recorder lands where the flags say, and the flags'
-    defaults lie under the process's temporary directory."""
+    defaults lie under the process's temporary directory. The recorder
+    records the process, so the first ``init`` of a process installs it
+    and later ones keep it: it is checked in a process of its own, whose
+    flag is set through the environment (another test module of this
+    process may have installed it already, under its own flags)."""
     from ray_tpu_torch._private.config import _config
-    from ray_tpu_torch.observability import recorder
-    root = runtime_dirs["ray_tpu_torch"]
-    assert recorder.get_recorder().root == str(root / "flight_recorder_dir")
+    want = tmp_path / "flight"
+    code = ("import ray_tpu_torch as rt\n"
+            "from ray_tpu_torch.observability import recorder\n"
+            "rt.init(num_cpus=1)\n"
+            "print(recorder.get_recorder().root)\n"
+            "rt.shutdown()\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, RAY_TPU_FLIGHT_RECORDER_DIR=str(want),
+               CUDA_VISIBLE_DEVICES="", PYTHONPATH=repo)
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == str(want)
     for flag in DIR_FLAGS:
         assert _config._defs[flag][1].startswith(tempfile.gettempdir())
 
