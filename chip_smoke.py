@@ -302,12 +302,13 @@ Phases, each of which asserts:
    answer and to the scale-down;
 25. the cluster tools around phase 5's model (f32, weights from its seed):
    (a) ``python -m ray_tpu_torch.scripts.cluster start --head
-   --num-gpus=0`` and ``start --address=<head> --num-gpus=1`` with the
-   head's token, each in its own run dir under ``build/cli`` (the head
-   boots while this process makes the references); ``status`` lists both
-   daemons alive and 1 GPU; a driver ``init(address=, auth_token=,
-   num_cpus=1, include_dashboard=True)`` (its CPU hosts the Serve
-   controller) whose ``/api/cluster`` lists the GPU node;
+   --num-gpus=0 --num-cpus=0`` and ``start --address=<head> --num-gpus=1
+   --num-cpus=8`` with the head's token, each in its own run dir under
+   ``build/cli`` (the head boots while this process makes the
+   references); ``status`` lists both daemons alive and 1 GPU; a driver
+   ``init(address=, auth_token=, num_cpus=1, include_dashboard=True)``
+   (its CPU hosts the Serve controller) whose ``/api/cluster`` lists the
+   GPU node;
    (b) with ``autopilot_enabled``, a batched deployment (``max_batch_size``
    8, a linger of 200 ms) on a ``num_gpus=1`` replica in the GPU daemon,
    the Serve controller in the driver: 16 requests one at a time, then
@@ -340,7 +341,22 @@ Phases, each of which asserts:
    every band unchanged bit for bit (a read past a tensor shows as a
    difference, a write past it as a changed band); then 4 heads of 2
    batches at once must equal each head run alone, bit for bit. Its
-   launches compare and do not count.
+   launches compare and do not count;
+27. a C++ driver (``ray_tpu_torch/_native/cpp_serve_lm.cc``, a user program
+   that includes the port's ``cpp_worker.cc``; g++ alone, no protobuf
+   library, built in a process of its own from phase 2's end on) on phase
+   25's cluster, between its (c) and (d): Python registers ``ServingLM``
+   (phase 5's f32 model from its seed on ``resolve_device()``'s card) by
+   name, and the program makes it with ``Actor("ServingLM").Remote()``,
+   then sends phase 5's 16 requests one at a time and then all 16 as
+   ``ObjectRef`` futures in flight; every answer must equal phase 24's
+   direct answer, the actor must have run on the card in the GPU daemon
+   with ``n_layers`` forward launches a request there (into the kernels
+   line), the demo driver's checks (nodes, KV, ``cpp_add``, the typed
+   ``Counter``) must pass on the same cluster, ``Kill()`` must end the
+   actor, and ``ldd`` must name no ``libprotobuf``; the build's seconds,
+   the C++ requests/s both ways beside phase 24's direct and Ray Client
+   rates, and the mean JSON bytes of a request and an answer.
 
 Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
@@ -512,6 +528,14 @@ GUARD_BAND_ROWS = 256
 GUARD_BAND_MIN = 4096
 GUARD_SHAPES = ((200, 200), (1024, 1024), (200, 333))   # (Lq, Lk)
 GUARD_HEADS = (2, 200, 4, 64)                           # (B, L, H, D)
+# Phase 27: a C++ user program on the port's C++ worker API, built in a
+# process of its own from phase 2's end on and run in phase 25's cluster,
+# whose head daemon offers no CPU: the program's tasks (1 CPU each) spill
+# back to the GPU daemon, whose CPUs leave its actors room beside the
+# tasks in flight, so the actor the program creates lands there.
+CPP_PROGRAM = "ray_tpu_torch/_native/cpp_serve_lm.cc"
+CPP_EXE = "raytpu_cpp_serve_lm"
+CLI_GPU_NODE_CPUS = 8
 
 
 def log(msg: str) -> None:
@@ -5162,7 +5186,9 @@ def leaf_phase(fa, device, card, direct_rps, width=SERVE_WIDTH,
     jobs, the state API) and the autoscaler, each driving phase 5's model
     on the card. ``autoscale_type`` and ``autoscale_task``: the node type
     (f) launches and the task's resources (default: one GPU). Returns the
-    flash forward kernel's launches, counted in every process."""
+    flash forward kernel's launches, counted in every process, the direct
+    answers and the f32 rates: {"launches", "want", "direct_rps",
+    "client_rps"}."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.models import transformer
 
@@ -5197,8 +5223,10 @@ def leaf_phase(fa, device, card, direct_rps, width=SERVE_WIDTH,
         launches += workflow_step(rt, fa, device, card, want, root, width,
                                   per_pass)
         launches += pool_step(rt, fa, cfg, params, requests, want, per_pass)
-        launches += client_step(rt, fa, card, want, width, direct_rps,
-                                len(requests) / direct_s, device)
+        got, client_rps = client_step(rt, fa, card, want, width,
+                                      direct_rps, len(requests) / direct_s,
+                                      device)
+        launches += got
     finally:
         rt.shutdown()
     del params
@@ -5208,7 +5236,8 @@ def leaf_phase(fa, device, card, direct_rps, width=SERVE_WIDTH,
     log(f"[leaf] phase 24 in {time.perf_counter() - t_phase:.1f} s; "
         f"{launches} forward launches in all its processes")
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return {"launches": launches, "want": want.tolist(),
+            "direct_rps": len(requests) / direct_s, "client_rps": client_rps}
 
 
 def workflow_step(rt, fa, device, card, want, root, width, per_pass):
@@ -5384,7 +5413,8 @@ def client_step(rt, fa, card, want, width, direct_rps, direct_f32_rps,
         f"list_nodes row has GPU {total['GPU']} in total and "
         f"{avail.get('GPU', 0.0)} available (the actor's grant); "
         f"summarize_tasks: {state.summarize_tasks()['by_state']}")
-    return fa.launches
+    return fa.launches, {"one": n / seen["one_s"],
+                         f"from {CLIENT_THREADS}": n / seen["many_s"]}
 
 
 def job_step(device, root):
@@ -5692,13 +5722,15 @@ def cluster_pids(markers):
     return pids
 
 
-def autopilot_phase(fa, device, card, width=SERVE_WIDTH):
+def autopilot_phase(fa, device, card, width=SERVE_WIDTH, cpp=None):
     """Phase 25: a cluster started by the CLI, a driver with the dashboard
     head and the autopilot in it, phase 5's model as a batched Serve
     deployment on the GPU node, the CLI's ``top`` and the doctor against the
-    live cluster and after a daemon's kill. Returns the flash forward
-    kernel's launches: the direct answers' here and the replica's, counted
-    in the GPU daemon's process."""
+    live cluster and after a daemon's kill. ``cpp(rt, address, token,
+    gpu_pid, gpu_node, root)``, run between (c) and (d), is phase 27.
+    Returns the flash forward kernel's launches (the direct answers' here
+    and the replica's, counted in the GPU daemon's process) and what
+    ``cpp`` returned."""
     import os
     import signal
 
@@ -5726,7 +5758,7 @@ def autopilot_phase(fa, device, card, width=SERVE_WIDTH):
     try:
         # (a) the cluster from the CLI: a head whose processes see no card
         head_start = start_module(cli, "start", "--head", "--num-gpus=0",
-                                  "--num-cpus=2", f"--run-dir={head_dir}",
+                                  "--num-cpus=0", f"--run-dir={head_dir}",
                                   env=head_env)
         # The references, made here while the head boots and before the GPU
         # daemon starts: the direct forward of each request alone at its
@@ -5757,7 +5789,8 @@ def autopilot_phase(fa, device, card, width=SERVE_WIDTH):
         token = (head_dir / "token").read_text().strip()
         token_env = dict(os.environ, RAY_TPU_AUTH_TOKEN=token)
         gpu_start = start_module(cli, "start", f"--address={address}",
-                                 "--num-gpus=1", "--num-cpus=2",
+                                 "--num-gpus=1",
+                                 f"--num-cpus={CLI_GPU_NODE_CPUS}",
                                  f"--run-dir={gpu_dir}",
                                  f"--token-file={head_dir / 'token'}",
                                  env=gpu_env)
@@ -5802,6 +5835,9 @@ def autopilot_phase(fa, device, card, width=SERVE_WIDTH):
             launches, rows = autopilot_serve(
                 serve, head, address, device, requests, direct, dense,
                 width, knob, label, gpu_pid, token_env)
+            cpp_out = cpp and cpp(rt, address=address, token=token,
+                                  gpu_pid=gpu_pid,
+                                  gpu_node=gpu_node["node_id"], root=root)
             # (d) the doctor after a kill
             observability.enable()
             doomed = rt.remote(num_gpus=1, max_retries=0)(doomed_forward)
@@ -5872,7 +5908,7 @@ def autopilot_phase(fa, device, card, width=SERVE_WIDTH):
         f"answers")
     shutil.rmtree(root, ignore_errors=True)
     log(f"[cli] phase 25 in {time.perf_counter() - t_phase:.1f} s")
-    return direct_launches + launches
+    return direct_launches + launches, cpp_out
 
 
 def autopilot_serve(serve, head, address, device, requests, direct, dense,
@@ -5975,6 +6011,198 @@ def autopilot_serve(serve, head, address, device, requests, direct, dense,
     return launches, dict(serve_run_s=serve_run_s, reaction_s=reaction_s,
                           explain_s=explain_s, p95_before=p95_before,
                           p95_after=p95_after)
+
+
+# -- phase 27: a C++ driver serving the flagship transformer -----------------
+
+
+def start_cpp_build():
+    """Phase 27's C++ program, built by ``build.build_cpp_program`` (the
+    recipe of ``build_cpp_worker_demo``) in a process of its own, so that
+    the script waits for it only in the phase: (the process, the host
+    clock at its start). The process is killed at exit if still running."""
+    import atexit
+    code = ("import json, time\n"
+            "from ray_tpu_torch._native import build\n"
+            "t0 = time.perf_counter()\n"
+            f"exe = build.build_cpp_program({str(REPO / CPP_PROGRAM)!r}, "
+            f"{CPP_EXE!r})\n"
+            "print('CPP_BUILD ' + json.dumps({'exe': exe, 'seconds': "
+            "time.perf_counter() - t0, 'process_s': time.time() - "
+            f"{time.time()!r}}}), flush=True)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def finish_cpp_build(started):
+    """``start_cpp_build``'s result: {"exe", "seconds" (the g++ build),
+    "process_s" (its process, start-up included)}."""
+    _, out = finish_module(started)
+    return json_line(out, "CPP_BUILD")
+
+
+class ServingLM:
+    """User code for phase 27, registered by name and created by the C++
+    program: phase 5's f32 model from its seed on the device that
+    ``resolve_device`` gives, in the process the creation task ran in; each
+    answer is phase 24's (the argmax of the request's last-token logits,
+    the request alone at its bucket). ``cpp_lm_class`` binds ``width`` and
+    ``device_type``."""
+
+    width = None
+    device_type = None
+
+    def __init__(self):
+        import os
+
+        import ray_tpu_torch
+        from ray_tpu_torch.models import transformer
+        no_tf32()
+        self.fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+        device = ray_tpu_torch.resolve_device(self.device_type)
+        self.cfg, self.params = seeded_lm(device, self.width)
+        weight = next(iter(transformer.leaves(self.params)))
+        self.where = {"pid": os.getpid(),
+                      "node": ray_tpu_torch.get_runtime_context()
+                      .node_id.hex(),
+                      "device": str(weight.device),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def answer(self, tokens):
+        return int(lm_answers(self.cfg, self.params, [tokens])[0])
+
+    def launches(self):
+        return self.fa.launches
+
+    def info(self):
+        return json.dumps(self.where)
+
+
+def cpp_lm_class(width, device_type):
+    return type("ServingLM", (ServingLM,),
+                {"width": width, "device_type": device_type})
+
+
+def cpp_add(a, b):
+    """The demo driver's named function."""
+    return a + b
+
+
+class Counter:
+    """The demo driver's named actor class."""
+
+    def __init__(self, start):
+        self.v = start
+
+    def add(self, x):
+        self.v += x
+        return self.v
+
+    def total(self):
+        return self.v
+
+
+def cpp_driver_phase(rt, fa, card, build, leaf, address, token, gpu_pid,
+                     gpu_node, root, width=SERVE_WIDTH, device_type="cuda"):
+    """Phase 27, on phase 25's live cluster (``rt`` its driver): the C++
+    program creates a ``ServingLM`` actor by name and sends phase 5's
+    requests one at a time, then all at once in flight; every answer must
+    equal phase 24's (``leaf["want"]``), the actor must have run on the
+    card in the GPU daemon (``gpu_pid``, ``gpu_node``) with ``n_layers``
+    forward launches a request counted there, the demo driver's checks must
+    pass on the same cluster, and the actor must be gone after ``Kill()``.
+    Returns {"launches", "seconds", ...} (the seconds include the wait
+    for the build)."""
+    from ray_tpu_torch._private import worker
+
+    t_phase = time.perf_counter()
+    built = finish_cpp_build(build)
+    ldd = subprocess.run(["ldd", built["exe"]], capture_output=True,
+                         text=True, timeout=60)
+    assert ldd.returncode == 0 and "libstdc++" in ldd.stdout, ldd
+    assert "protobuf" not in ldd.stdout, ldd.stdout
+    _, _, requests = seeded_requests(width, N_REQUESTS)
+    n_layers, n = width["n_layers"], len(requests)
+    per_request = n_layers if device_type == "cuda" else 0
+    rt.register_named_actor_class("ServingLM",
+                                  cpp_lm_class(width, device_type))
+    rt.register_named_function("cpp_add", cpp_add)
+    rt.register_named_actor_class("Counter", Counter)
+    req_file = root / "cpp_requests.txt"
+    req_file.write_text("".join(json.dumps(r) + "\n" for r in requests))
+    # phase 25's replica has left the GPU daemon: its card and CPUs are free
+    deadline = time.monotonic() + 30
+    while (rt.available_resources().get("GPU", 0.0)
+           < rt.cluster_resources().get("GPU", 0.0)):
+        assert time.monotonic() < deadline, rt.available_resources()
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    proc = subprocess.run([built["exe"], address, str(req_file), token],
+                          capture_output=True, text=True,
+                          timeout=SUBPROCESS_TIMEOUT_S)
+    run_s = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.returncode, proc.stdout[-3000:],
+                                  proc.stderr[-3000:])
+    lines = proc.stdout.splitlines()
+    out = dict(ln.split("=", 1) for ln in lines if "=" in ln)
+    where = json.loads(out["actor_info"])
+    assert where["device"].startswith(device_type), where
+    assert where["pid"] == gpu_pid and where["node"] == gpu_node, (
+        where, gpu_pid, gpu_node)
+    want = leaf["want"]
+    for key in ("answers_one", "answers_in_flight"):
+        got = [int(a) for a in out[key].split(",")]
+        assert got == want, (key, got, want)
+    l0, l1, l2, l3 = (int(x) for x in out["launches"].split(","))
+    assert (l1 - l0, l2 - l1, l3 - l2) == (
+        per_request, per_request * n, per_request * n), out["launches"]
+    nodes = worker.global_worker().runtime.state.list_nodes()
+    demo = {"nodes": str(len(nodes)), "kv": "from-cpp", "cpp_add(2,3)": "5",
+            "typed_add": "5", "counter_add": "15", "counter_add2": "22",
+            "counter_total": "22"}
+    assert {k: out.get(k) for k in demo} == demo, out
+    assert "typed-ok" in lines, lines
+    deadline = time.monotonic() + 15
+    while True:   # Kill() took effect: the actor is gone for Python too
+        try:
+            rt.get(rt.get_actor(out["lm_actor"]).launches.remote(),
+                   timeout=5)
+        except Exception:  # raylint: allow(swallow) any failure means the actor is gone (the pass condition)
+            break
+        assert time.monotonic() < deadline, out["lm_actor"]
+        time.sleep(0.2)  # raylint: allow(bare-retry) deadline-bounded poll for the killed actor
+    one_rps = n / float(out["one_s"])
+    flight_rps = n / float(out["in_flight_s"])
+    seconds = time.perf_counter() - t_phase
+    client = leaf["client_rps"]
+    log(f"[cpp] (27) {CPP_PROGRAM} built by build.build_cpp_program with "
+        f"g++ alone (ldd names no libprotobuf) in a process started after "
+        f"phase 2; in phase 25's cluster (token auth), "
+        f"Actor(\"ServingLM\").Remote() made the actor in the GPU daemon "
+        f"(pid {where['pid']}, node {where['node'][:8]}, "
+        f"CUDA_VISIBLE_DEVICES={where['visible']!r}, weights on "
+        f"{where['device']}); {n} requests one at a time and {n} in flight "
+        f"as ObjectRef futures: every answer equals phase 24's direct "
+        f"answer; forward launches in the actor's process (warm-up, one at "
+        f"a time, in flight) {l1 - l0} / {l2 - l1} / {l3 - l2}; the demo's "
+        f"checks on the same cluster: nodes={out['nodes']}, kv, cpp_add, "
+        f"the typed Counter, Kill(); the actor gone after Kill()")
+    log(f"[times] {card}: phase 27 (host clock): the C++ program's build "
+        f"{built['seconds']:.2f} s (g++), its process {built['process_s']:.2f}"
+        f" s; the program {run_s:.2f} s, the actor ready after "
+        f"{float(out['ready_s']):.2f} s; C++ driver, f32, one request a "
+        f"call: {one_rps:.2f} requests/s one at a time, {flight_rps:.2f} "
+        f"with {n} in flight; phase 24: direct {leaf['direct_rps']:.2f}, Ray"
+        f" Client " + " / ".join(f"{v:.2f} ({k})" for k, v in client.items())
+        + f"; mean JSON bytes {float(out['request_json_bytes_mean']):.1f} a "
+        f"request, {float(out['answer_json_bytes_mean']):.1f} an answer; the"
+        f" phase {seconds:.1f} s")
+    return {"launches": l3 - l0, "seconds": seconds,
+            "build_s": built["seconds"], "one_rps": one_rps,
+            "flight_rps": flight_rps}
 
 
 def lockwatch_child(args_json: str) -> None:
@@ -6329,6 +6557,7 @@ def main() -> int:
         for line in ptxas_summary(r.log):
             log(f"[build]   {line}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+    cpp_build = start_cpp_build()   # phase 27's program, waited for there
     lap(2)
 
     # 3. kernels against their plain versions
@@ -6544,16 +6773,21 @@ def main() -> int:
     # state API) and the autoscaler, each driving phase 5's model (forward
     # launches counted in every process that ran one)
     free_device_caches()
-    leaf_launches = leaf_phase(fa, device, card, N_REQUESTS / seconds)
+    leaf = leaf_phase(fa, device, card, N_REQUESTS / seconds)
     lap(24)
 
     # 25. a cluster started by the CLI, the dashboard head with the
     # autopilot retuning a batched deployment on the GPU node, the CLI's top
     # and the doctor, live and after a daemon's kill (forward launches
-    # counted here and in the GPU daemon)
+    # counted here and in the GPU daemon); 27. on that cluster, before the
+    # kill, a C++ program serving phase 5's model from an actor it makes in
+    # the GPU daemon (forward launches counted there)
     free_device_caches()
-    cli_launches = autopilot_phase(fa, device, card)
+    cli_launches, cpp = autopilot_phase(
+        fa, device, card, cpp=functools.partial(
+            cpp_driver_phase, fa=fa, card=card, build=cpp_build, leaf=leaf))
     lap(25)
+    laps[-1] = (25, laps[-1][1] - cpp["seconds"])
 
     # 26. the devtools: (a) the serving and training paths under the
     # lock-order watchdog in a process of its own, then the serving path
@@ -6568,6 +6802,7 @@ def main() -> int:
     assert launch_counts(fa) == counted, "a guard-band launch was counted"
     log(f"[devtools] phase 26 in {time.perf_counter() - t0:.1f} s")
     lap(26)
+    laps.append((27, cpp["seconds"]))
     log("[phases] seconds each (host clock): " + ", ".join(
         f"{p} {t:.1f}" for p, t in laps) +
         f"; {sum(t for _, t in laps):.1f} in all")
@@ -6576,7 +6811,8 @@ def main() -> int:
         a + b + c + d + e for a, b, c, d, e in zip(
             trained["launches"], trainer_launches, plane_launches,
             data_launches, lockwatch_launches))
-    fwd_launches += daemon_launches + leaf_launches + cli_launches
+    fwd_launches += (daemon_launches + leaf["launches"] + cli_launches
+                     + cpp["launches"])
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",

@@ -6,9 +6,11 @@ system toolchain, cached under ``build/ray_tpu_torch/native/`` at the root
 of the checkout (git-ignored) and rebuilt when the source is newer. No
 pybind11 — the libraries expose a C ABI consumed via ctypes.
 
-The JAX package's protobuf-linked binaries are not built here: the port's
-state service is Python (``_private/state_service.py``), and the C++
-worker demo waits for ``libprotobuf`` on the machines the port runs on.
+The C++ worker API (``cpp_worker.cc``) builds into a binary with g++
+alone: its messages go through ``pbwire.h``, a proto3 codec written by
+hand, so neither ``protoc`` nor ``libprotobuf`` is needed. The JAX
+package's other protobuf-linked binary, the state service, is not built
+here: the port's is Python (``_private/state_service.py``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
@@ -96,3 +99,47 @@ def load_native_library(name: str,
             lib = None
         _CACHE[name] = lib
         return lib
+
+
+def build_cpp_program(source: str, name: str,
+                      extra_flags: Sequence[str] = ()) -> str:
+    """Compile a C++ program that includes ``cpp_worker.cc`` (found through
+    ``-I`` on this directory) into ``build/ray_tpu_torch/native/<name>``;
+    returns the executable's path. Cached until ``source``,
+    ``cpp_worker.cc`` or ``pbwire.h`` is newer; the binary is replaced
+    atomically, so concurrent builders never see a partial one."""
+    exe = os.path.join(_BUILD_DIR, f"{name}{_artifact_suffix()}")
+    deps = [source] + [os.path.join(_DIR, f)
+                       for f in ("cpp_worker.cc", "pbwire.h")]
+    with _LOCK:
+        try:
+            if (os.path.exists(exe) and os.path.getmtime(exe)
+                    >= max(os.path.getmtime(d) for d in deps)):
+                return exe
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(prefix=f"{name}_", dir=_BUILD_DIR)
+            os.close(fd)
+            try:
+                subprocess.run(
+                    ["g++", "-O2", "-std=c++17", *extra_flags,
+                     *_sanitize_flags(), f"-I{_DIR}", "-o", tmp, source,
+                     "-lpthread"],
+                    check=True, capture_output=True, text=True)
+                os.chmod(tmp, 0o755)
+                os.replace(tmp, exe)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        except subprocess.CalledProcessError as e:
+            raise NativeBuildError(f"{name} build failed:\n{e.stderr}") from e
+        except OSError as e:
+            raise NativeBuildError(f"{name} build failed: {e}") from e
+        return exe
+
+
+def build_cpp_worker_demo() -> str:
+    """Build the C++ worker-API demo driver (``cpp_worker.cc``): the
+    cross-language client that joins a cluster, round-trips the KV and
+    invokes Python named functions with JSON args."""
+    return build_cpp_program(os.path.join(_DIR, "cpp_worker.cc"),
+                             "raytpu_cpp_demo", ["-DRAYTPU_CPP_DEMO_MAIN"])
