@@ -58,14 +58,27 @@ class Profiler:
                dur_s: float, args: Optional[Dict[str, Any]] = None):
         if not self.enabled:
             return
+        self._complete(name, cat, pid, start_s * 1e6, dur_s * 1e6, args)
+
+    def record_ns(self, name: str, cat: str, pid: str, t0_ns: int,
+                  t1_ns: int, args: Optional[Dict[str, Any]] = None):
+        """``record`` from two ``time.time_ns()`` stamps, each read at its
+        edge: the span then lines up with a ``torch.profiler`` trace of
+        the device, whose timestamps are on the same clock."""
+        if not self.enabled:
+            return
+        self._complete(name, cat, pid, t0_ns / 1e3, (t1_ns - t0_ns) / 1e3,
+                       args)
+
+    def _complete(self, name, cat, pid, ts_us, dur_us, args):
         span = {
             "name": name,
             "cat": cat,
             "ph": "X",
             "pid": pid,
             "tid": threading.current_thread().name,
-            "ts": start_s * 1e6,
-            "dur": dur_s * 1e6,
+            "ts": ts_us,
+            "dur": dur_us,
         }
         if args:
             span["args"] = args

@@ -80,6 +80,11 @@ class _TaskContext(threading.local):
         self.cancel_flag: Optional[threading.Event] = None
         self.trace_id: str = ""   # current trace (propagates to children)
         self.span_id: str = ""    # current span (children's parent)
+        # The executing actor call's parent span and submit stamp (wall
+        # clock, 0.0 when unstamped): a serve request's id and the time
+        # its handle was called (``call_context``).
+        self.parent_span_id: str = ""
+        self.submit_s: float = 0.0
 
 
 task_context = _TaskContext()
@@ -110,6 +115,48 @@ def _obs_context_provider():
 
 
 observability.register_context_provider(_obs_context_provider)
+
+# Trace fields a caller chose for the submissions it makes inside
+# ``call_context``: (trace_id, parent_span_id, submit_s).
+_call_var: "contextvars.ContextVar" = contextvars.ContextVar(
+    "ray_tpu_call", default=None)
+
+
+class call_context:
+    """Submissions made inside carry ``parent_span_id`` and the wall-clock
+    stamp ``submit_s`` in their ``TaskSpec`` (``perf_submit_s``, rebased
+    across hosts like every submit stamp), under the caller's trace, or
+    under a trace rooted at ``parent_span_id`` where the caller is in
+    none. A serve handle submits each request's actor call so: the
+    replica reads them back with ``current_call``. An empty
+    ``parent_span_id`` leaves the submissions to the usual context."""
+
+    __slots__ = ("_parent", "_submit_s", "_token")
+
+    def __init__(self, parent_span_id: str, submit_s: float):
+        self._parent = parent_span_id
+        self._submit_s = submit_s
+        self._token = None
+
+    def __enter__(self) -> "call_context":
+        if self._parent:
+            outer = observability.current()
+            trace_id = outer[0] if outer else self._parent
+            self._token = _call_var.set(
+                (trace_id, self._parent, self._submit_s))
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        if self._token is not None:
+            _call_var.reset(self._token)
+            self._token = None
+
+
+def current_call() -> Tuple[str, str, float]:
+    """``(trace_id, parent_span_id, submit_s)`` of the actor call this
+    thread executes; empty strings and 0.0 outside one."""
+    ctx = task_context
+    return ctx.trace_id, ctx.parent_span_id, ctx.submit_s
 
 
 class Node:
@@ -568,6 +615,10 @@ class Runtime:
         trace id when profiling is on (tracing is free when it's off)."""
         if spec.trace_id:
             return  # retries keep their original identity
+        chosen = _call_var.get()
+        if chosen is not None:
+            spec.trace_id, spec.parent_span_id, spec.perf_submit_s = chosen
+            return
         async_ctx = _trace_var.get()
         ctx = task_context
         if async_ctx:
@@ -1176,6 +1227,8 @@ class Runtime:
             ctx.trace_id = spec.trace_id
             span_id = os.urandom(8).hex() if spec.trace_id else ""
             ctx.span_id = span_id
+            ctx.parent_span_id = spec.parent_span_id
+            ctx.submit_s = spec.perf_submit_s
             t0 = time.monotonic()
             try:
                 if cancel.is_set():

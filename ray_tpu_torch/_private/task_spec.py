@@ -53,9 +53,11 @@ class TaskSpec:
     # task's span to the span that submitted it.
     trace_id: str = ""
     parent_span_id: str = ""
-    # Perf plane: wall-clock submit stamp (time.time(), set only when
-    # perf.ENABLED) so the executing side can split scheduling wait from
-    # execution in the task.e2e / task.sched histograms.  Wall clock
+    # Perf plane: wall-clock submit stamp (time.time(), set when
+    # perf.ENABLED, and on the actor call of a serve request, where it is
+    # the handle call's time: ``runtime.call_context``) so the executing
+    # side can split scheduling wait from execution in the task.e2e /
+    # task.sched histograms and time a request's route.  Wall clock
     # because submit and execute may be different processes; when the spec
     # crosses a process boundary the stamp is rebased through the
     # state-service timebase (clocksync) so the execute-site delta is

@@ -18,14 +18,17 @@ the weights.
 from __future__ import annotations
 
 import threading
+import time
 import uuid
 import weakref
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch import DeviceLike, observability, resolve_device
+from ray_tpu_torch._private.profiling import get_profiler
 from ray_tpu_torch._private.host import to_numpy
 from ray_tpu_torch.air.checkpoint import Checkpoint
 
@@ -86,10 +89,20 @@ class TorchPredictor(Predictor):
     def _predict(self, data):
         """``np.asarray`` of the output, as ``JaxPredictor`` returns it: an
         array for a tensor; for a dict, list or tuple, ``np.asarray`` of the
-        tree with its tensors as numpy (a dict gives a 0-d object array)."""
-        with torch.inference_mode():
+        tree with its tensors as numpy (a dict gives a 0-d object array).
+
+        The forward, from the batch's copy to the device to the numpy
+        answer, is a ``serve.forward`` span in the span ring (with
+        ``profiling_enabled``; edges on ``time.time_ns``) and a
+        ``record_function`` range of the same name in a device trace."""
+        t0_ns = time.time_ns()
+        with torch.inference_mode(), record_function("serve.forward"):
             out = self._apply(self.params, _to_device(data, self.device))
-            return np.asarray(_tree_to_numpy(out))
+            out = np.asarray(_tree_to_numpy(out))
+        get_profiler().record_ns("serve.forward", "serve",
+                                 observability.process_label(), t0_ns,
+                                 time.time_ns())
+        return out
 
 
 def _tree_to_numpy(tree: Any) -> Any:

@@ -57,11 +57,12 @@ PERF_HISTOGRAMS = frozenset({
     "serve.execute",
     "serve.serialize",
     "serve.ingress_put",
-    "serve.replica_exec",
+    "serve.route",  # handle call to replica admission (replica.py)
     # train loop
     "train.step",
     "train.report",
     "train.ckpt_enqueue",
+    "train.optimizer",  # the optimizer phase's device time (train/step.py)
     # jit compile detection (goodput ledger's runtime mirror of R21)
     "jit.compile",
     # drain / lifecycle

@@ -38,6 +38,14 @@ Every request — batched or direct — feeds two replica-local
 ``get_metrics()`` to the controller, which diffs them per tick, federates
 across replicas with ``perf.merge_counts``, and publishes per-replica
 execute p95 to routers / feeds the EWMA-smoothed SLO autoscaler.
+
+A request keeps the id its handle minted (the actor call's parent span,
+``runtime.current_call``). With ``profiling_enabled`` the replica records
+into the span ring, each edge a ``time.time_ns()`` read at that edge:
+``serve.route`` (handle call to admission here; also the ``serve.route``
+perf histogram), ``serve.queue`` (admission into the batcher's queue to
+its batch's start, or to its shedding, with ``shed``) and one
+``serve.batch`` a batch (its start to the last answer handed to a slot).
 """
 
 from __future__ import annotations
@@ -48,11 +56,13 @@ import threading
 import time
 from typing import Any, List, Optional
 
-from ray_tpu_torch import chaos
+from ray_tpu_torch import chaos, observability
 from ray_tpu_torch._private.config import _config
+from ray_tpu_torch._private.profiling import get_profiler
+from ray_tpu_torch._private.runtime import current_call
 from ray_tpu_torch.exceptions import BatchExecutionError, ServeOverloadedError
 from ray_tpu_torch.observability import perf
-from ray_tpu_torch.serve.batching import next_request_id, pad_items
+from ray_tpu_torch.serve.batching import next_bucket, pad_items
 
 # EWMA weight for the per-item execution-time estimate that sizes batches
 # and the queue_est_ms backpressure signal (local smoothing; the
@@ -87,19 +97,25 @@ def _resolve_arg_refs(args):
                  for a in args)
 
 
+def _record(name: str, t0_ns: int, t1_ns: int, args: dict) -> None:
+    get_profiler().record_ns(name, "serve", observability.process_label(),
+                             t0_ns, t1_ns, args)
+
+
 class _BatchSlot:
     """One queued request parked in the replica batcher."""
 
     __slots__ = ("item", "event", "value", "error", "request_id",
-                 "t_enqueue")
+                 "t_enqueue", "t_enqueue_ns")
 
-    def __init__(self, item):
+    def __init__(self, item, request_id: str):
         self.item = item
         self.event = threading.Event()
         self.value = None
         self.error: Optional[BaseException] = None
-        self.request_id = next_request_id()
-        self.t_enqueue = time.monotonic()
+        self.request_id = request_id
+        self.t_enqueue = time.monotonic()  # ages: linger and deadline
+        self.t_enqueue_ns = time.time_ns()  # the queue span's first edge
 
 
 class _ReplicaBatcher:
@@ -143,8 +159,8 @@ class _ReplicaBatcher:
                                  if pad else None)
         self._wakeup.set()
 
-    def submit(self, item) -> Any:
-        slot = _BatchSlot(item)
+    def submit(self, item, request_id: str) -> Any:
+        slot = _BatchSlot(item, request_id)
         with self._lock:
             if self._thread is None:
                 self._thread = threading.Thread(
@@ -215,9 +231,12 @@ class _ReplicaBatcher:
                 self._queue = self._queue[cap:]
                 if not self._queue:
                     self._wakeup.clear()
+                flushed = time.monotonic()
             for s in expired:
                 wait_ms = (time.monotonic() - s.t_enqueue) * 1e3
                 self._replica._observe_queue_wait(wait_ms)
+                _record("serve.queue", s.t_enqueue_ns, time.time_ns(),
+                        {"request_id": s.request_id, "shed": True})
                 s.error = ServeOverloadedError(
                     f"request {s.request_id} aged {wait_ms:.0f}ms in the "
                     f"replica {self._replica.replica_tag} queue "
@@ -225,12 +244,11 @@ class _ReplicaBatcher:
                     retry_after_s=max(deadline_ms / 1e3, 0.1))
                 s.event.set()
             if batch:
-                self._run_batch(batch)
+                self._run_batch(batch, cap,
+                                (flushed - batch[0].t_enqueue) * 1e3)
 
-    def _call(self, items: List[Any]) -> List[Any]:
+    def _call(self, items: List[Any], buckets) -> List[Any]:
         n = len(items)
-        with self._lock:
-            buckets = self._buckets
         padded = pad_items(list(items), buckets)
         results = list(self._replica._invoke_batch(padded))[:n]
         if len(results) != n:
@@ -239,18 +257,37 @@ class _ReplicaBatcher:
                 f"for {n} inputs")
         return results
 
-    def _run_batch(self, batch: List[_BatchSlot]) -> None:
+    def _run_batch(self, batch: List[_BatchSlot], cap: int,
+                   linger_ms: float) -> None:
         r = self._replica
         t_start = time.monotonic()
+        t_start_ns = time.time_ns()
+        batch_id = observability.mint_id()
         for s in batch:
             r._observe_queue_wait((t_start - s.t_enqueue) * 1e3)
+            _record("serve.queue", s.t_enqueue_ns, t_start_ns,
+                    {"request_id": s.request_id, "batch_id": batch_id})
+        with self._lock:
+            buckets = self._buckets
+        self._execute(batch, buckets, t_start)
+        n = len(batch)
+        _record("serve.batch", t_start_ns, time.time_ns(),
+                {"batch_id": batch_id,
+                 "request_ids": [s.request_id for s in batch], "rows": n,
+                 "rows_padded": next_bucket(n, buckets) - n, "cap": cap,
+                 "linger_ms": linger_ms})
+
+    def _execute(self, batch: List[_BatchSlot], buckets,
+                 t_start: float) -> None:
+        """Run ``batch`` and hand each slot its answer or its error."""
+        r = self._replica
         n = len(batch)
         try:
             if chaos.ENABLED:
                 chaos.inject("serve.replica.execute",
                              deployment=r.deployment_name,
                              replica=r.replica_tag)
-            results = self._call([s.item for s in batch])
+            results = self._call([s.item for s in batch], buckets)
             r._observe_execute((time.monotonic() - t_start) * 1e3, n)
             for s, v in zip(batch, results):
                 s.value = v
@@ -272,7 +309,7 @@ class _ReplicaBatcher:
             for s in batch:
                 t1 = time.monotonic()
                 try:
-                    s.value = self._call([s.item])[0]
+                    s.value = self._call([s.item], buckets)[0]
                 except BaseException as single_err:
                     s.error = single_err
                 r._observe_execute((time.monotonic() - t1) * 1e3, 1)
@@ -385,6 +422,17 @@ class Replica:
             self._batcher = self._build_batcher()
 
     def handle_request(self, method_name: str, args, kwargs) -> Any:
+        t_admit_ns = time.time_ns()
+        _, request_id, submit_s = current_call()
+        request_id = request_id or observability.mint_id()
+        if submit_s:  # the handle call's time, rebased to this clock
+            t0_ns = int(submit_s * 1e9)
+            _record("serve.route", t0_ns, t_admit_ns,
+                    {"request_id": request_id,
+                     "deployment": self.deployment_name,
+                     "replica": self.replica_tag})
+            if perf.ENABLED:
+                perf.observe("serve.route", (t_admit_ns - t0_ns) / 1e6)
         with self._lock:
             if self._draining:
                 raise RuntimeError(
@@ -398,7 +446,7 @@ class Replica:
                     and len(args) == 1 and not kwargs):
                 # The caller's actor thread parks on its slot; queue wait
                 # and execute are recorded by the flusher per batch.
-                return batcher.submit(args[0])
+                return batcher.submit(args[0], request_id)
             t0 = time.monotonic()
             try:
                 if chaos.ENABLED:
@@ -414,8 +462,6 @@ class Replica:
                 ms = (time.monotonic() - t0) * 1e3
                 self._observe_queue_wait(0.0)
                 self._observe_execute(ms, 1)
-                if perf.ENABLED:
-                    perf.observe("serve.replica_exec", ms)
         finally:
             with self._lock:
                 self._ongoing -= 1

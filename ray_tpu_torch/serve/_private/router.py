@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import ray_tpu_torch as ray_tpu
 from ray_tpu_torch._private.backoff import OPEN, BreakerBoard
 from ray_tpu_torch._private.config import _config
+from ray_tpu_torch._private.runtime import call_context
 from ray_tpu_torch.exceptions import ServeOverloadedError
 from ray_tpu_torch.serve._private.long_poll import LongPollClient
 from ray_tpu_torch.serve.controller import _replica_key
@@ -189,20 +190,26 @@ class Router:
             self._lock.notify_all()
 
     def assign_request(self, method_name: str, args, kwargs,
-                       timeout: Optional[float] = None):
+                       timeout: Optional[float] = None,
+                       request_id: str = "", t0_ns: int = 0):
         """Submit to a replica; returns the ObjectRef of the result.
 
         The replica slot is released when the result is consumed via
-        ``resolve`` (or eagerly on submit failure).
+        ``resolve`` (or eagerly on submit failure). The actor call carries
+        ``request_id`` as its parent span and ``t0_ns``, the handle
+        call's wall-clock time, as its submit stamp; the replica reads
+        both back (``runtime.current_call``).
         """
         replica, tag = self._pick(timeout)
         try:
-            ref = replica.handle_request.remote(method_name, args, kwargs)
+            with call_context(request_id, t0_ns / 1e9):
+                ref = replica.handle_request.remote(method_name, args,
+                                                    kwargs)
         except Exception:
             self._release(tag)
             raise
         return _TrackedRef(ref, self, replica, tag,
-                           (method_name, args, kwargs))
+                           (method_name, args, kwargs), request_id, t0_ns)
 
     def _refresh_membership(self) -> None:
         """Pull current replicas from the controller (used on retry, when
@@ -233,12 +240,15 @@ class _TrackedRef:
 
     _MAX_RETRIES = 3
 
-    def __init__(self, ref, router: Router, replica, tag: str, request):
+    def __init__(self, ref, router: Router, replica, tag: str, request,
+                 request_id: str = "", t0_ns: int = 0):
         self._ref = ref
         self._router = router
         self._replica = replica
         self._tag = tag
         self._request = request
+        self.request_id = request_id
+        self.t0_ns = t0_ns
         self._released = False
         self._retries = 0
 
@@ -284,7 +294,8 @@ class _TrackedRef:
                     self._retries += 1
                 self._router._refresh_membership()
                 replaced = self._router.assign_request(
-                    *self._request, timeout=30)
+                    *self._request, timeout=30, request_id=self.request_id,
+                    t0_ns=self.t0_ns)
                 self._ref = replaced._ref
                 self._replica = replaced._replica
                 self._tag = replaced._tag

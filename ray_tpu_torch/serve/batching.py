@@ -28,8 +28,9 @@ _request_counter = itertools.count()
 
 def next_request_id() -> int:
     """Process-unique id stamped on each batched request so batch-level
-    failures (``BatchExecutionError``) can name their members.  Shared
-    with the replica-side micro-batcher."""
+    failures (``BatchExecutionError``) can name their members.  The
+    replica-side micro-batcher names its requests by the ids their
+    handles minted instead."""
     return next(_request_counter)
 
 

@@ -5,24 +5,45 @@ request through the router (round-robin + max_concurrent_queries) and
 returns a response object whose ``.result()`` blocks for the value.
 ``handle.method_name.remote(...)`` calls a specific method.
 
-Port of ``ray_tpu/serve/handle.py``. One change: the handle builds its
-router under a lock (the JAX package's can build one per racing thread).
+Port of ``ray_tpu/serve/handle.py``. Changes: the handle builds its
+router under a lock (the JAX package's can build one per racing thread);
+each call mints a request id that the replica's batcher adopts, and, with
+``profiling_enabled``, records a ``serve.request`` span (args
+``request_id``, ``deployment``) from ``remote`` to the ``result`` that got
+the value, on the wall clock (``time.time_ns``) a device trace uses.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Optional
 
+from ray_tpu_torch import observability
+from ray_tpu_torch._private.profiling import get_profiler
 from ray_tpu_torch.serve._private.router import Router, _TrackedRef
 
 
 class DeploymentResponse:
-    def __init__(self, tracked: _TrackedRef):
+    def __init__(self, tracked: _TrackedRef, deployment: str = ""):
         self._tracked = tracked
+        self._deployment = deployment
+        self._t0_ns = tracked.t0_ns  # the span is open until a value comes
+
+    @property
+    def request_id(self) -> str:
+        return self._tracked.request_id
 
     def result(self, timeout: Optional[float] = None) -> Any:
-        return self._tracked.result(timeout)
+        value = self._tracked.result(timeout)
+        if self._t0_ns:
+            t0_ns, self._t0_ns = self._t0_ns, 0
+            get_profiler().record_ns(
+                "serve.request", "serve", observability.process_label(),
+                t0_ns, time.time_ns(),
+                {"request_id": self._tracked.request_id,
+                 "deployment": self._deployment})
+        return value
 
     def ref(self):
         return self._tracked.ref()
@@ -55,8 +76,11 @@ class DeploymentHandle:
             return self._router
 
     def _remote(self, method_name: str, args, kwargs) -> DeploymentResponse:
-        tracked = self._get_router().assign_request(method_name, args, kwargs)
-        return DeploymentResponse(tracked)
+        t0_ns = time.time_ns()
+        tracked = self._get_router().assign_request(
+            method_name, args, kwargs, request_id=observability.mint_id(),
+            t0_ns=t0_ns)
+        return DeploymentResponse(tracked, self.deployment_name)
 
     def remote(self, *args, **kwargs) -> DeploymentResponse:
         return self._remote("__call__", args, kwargs)

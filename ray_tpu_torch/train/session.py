@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.observability import goodput, perf
+from ray_tpu_torch.train.step import settle_optimizer_phase
 
 logger = logging.getLogger("ray_tpu")
 
@@ -187,7 +188,9 @@ def report(metrics: Dict[str, Any], checkpoint=None) -> None:
     previous report — the user's step loop), ``train.ckpt_enqueue`` (the
     synchronous share of the engine save: device->host copy + queueing;
     hash/write/commit stay on the writer thread), and ``train.report``
-    (this call's own cost).
+    (this call's own cost). It also reads the device time of the last
+    step's optimizer phase, if the card has finished it
+    (``step.settle_optimizer_phase``).
 
     Goodput ledger: each report closes one step — wall time since the
     previous mark that no explicit interval claimed (data_wait,
@@ -196,6 +199,7 @@ def report(metrics: Dict[str, Any], checkpoint=None) -> None:
     s = _get_session()
     if s is None:
         raise RuntimeError("session.report() called outside a train worker")
+    settle_optimizer_phase()
     t0 = time.monotonic() if perf.ENABLED else 0.0
     if t0 and s._last_report_s:
         perf.observe("train.step", (t0 - s._last_report_s) * 1e3)

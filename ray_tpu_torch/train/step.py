@@ -38,27 +38,93 @@ loss would be:
   ranks, so the reduced gradients are those of the global-batch mean; the
   reported ``loss`` is that mean, and ``grad_norm`` the norm of the whole
   gradient (a replicated element counted once).
+
+A step is three ``record_function`` ranges, ``train.forward``,
+``train.backward`` and ``train.optimizer`` (the gradient norm and the
+optimizer's step), which group the kernels of a device trace. With the
+perf plane on, the optimizer phase's time also feeds the
+``train.optimizer`` histogram: on a card, the elapsed time between two
+CUDA events recorded on the step's stream at the phase's edges, read once
+both are complete (at the thread's next step or at ``session.report``),
+so nothing waits for the device; elsewhere the host clock's.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.profiler import record_function
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models import transformer
 from ray_tpu_torch.models.transformer import TransformerConfig
-from ray_tpu_torch.observability import goodput
+from ray_tpu_torch.observability import goodput, perf
 from ray_tpu_torch.parallel import (ShardingRules, batch_sharding,
                                     pipeline_apply, shard_pytree)
 from ray_tpu_torch.parallel.sharding import place_local
 from ray_tpu_torch.parallel.spmd import all_gather, partial_grads
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
+
+# Each thread's unread pair of optimizer-phase events, by card: at most one
+# step's (module note).
+_phase_events = threading.local()
+
+
+def settle_optimizer_phase() -> None:
+    """Feed the thread's last optimizer phase on a card to the
+    ``train.optimizer`` histogram if both its events are complete; an
+    incomplete pair stays for the next call. Never waits for the device."""
+    pending = getattr(_phase_events, "pending", None)
+    if not pending:
+        return
+    for index, (start, end) in list(pending.items()):
+        if start.query() and end.query():
+            del pending[index]
+            perf.observe("train.optimizer", start.elapsed_time(end))
+
+
+class _optimizer_phase:
+    """The optimizer phase of one step (module note)."""
+
+    __slots__ = ("device", "_range", "_t0", "_events")
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._range = record_function("train.optimizer")
+        self._t0 = 0.0
+        self._events = None
+
+    def __enter__(self) -> "_optimizer_phase":
+        if perf.ENABLED:
+            if self.device.type == "cuda":
+                self._events = (torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True))
+                self._events[0].record(torch.cuda.current_stream(self.device))
+            else:
+                self._t0 = time.perf_counter()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        self._range.__exit__(*exc_info)
+        if self._events is not None:
+            self._events[1].record(torch.cuda.current_stream(self.device))
+            # The step before's pair, if the card has finished it; if not,
+            # it is dropped for this one.
+            settle_optimizer_phase()
+            if not hasattr(_phase_events, "pending"):
+                _phase_events.pending = {}
+            _phase_events.pending[self.device.index] = self._events
+        elif self._t0:
+            perf.observe("train.optimizer",
+                         (time.perf_counter() - self._t0) * 1e3)
 
 
 def adamw(lr: float = 3e-4, weight_decay: float = 0.01) -> OptimizerFactory:
@@ -140,20 +206,25 @@ def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
     def step_fn(state, tokens: torch.Tensor
                 ) -> Tuple[Any, Dict[str, torch.Tensor]]:
         params, opt = state
+        settle_optimizer_phase()
         leaves = transformer.leaves(params)
-        if sharded is None:
-            loss = transformer.loss_fn(params, tokens, cfg)
-            grads = torch.autograd.grad(loss, leaves)
-            with torch.no_grad():
+        with record_function("train.forward"):
+            loss = (transformer.loss_fn(params, tokens, cfg) if sharded is None
+                    else sharded.local_loss(params, tokens))
+        with record_function("train.backward"):
+            grads = torch.autograd.grad(
+                loss if sharded is None else loss / sharded.mesh.size, leaves)
+        with _optimizer_phase(device), torch.no_grad():
+            if sharded is None:
                 # optax.global_norm: the L2 norm over every leaf of the raw
                 # grads.
                 grad_norm = torch.sqrt(sum(g.square().sum() for g in grads))
-        else:
-            loss, grads, grad_norm = sharded.loss_and_grads(params, tokens)
-            # The optimizer holds the local shards (init_fn).
-            leaves = [p for group in opt.param_groups for p in group["params"]]
-            grads = [g.to_local() for g in grads]
-        with torch.no_grad():
+            else:
+                loss, grad_norm = sharded.loss_and_norm(loss, grads)
+                # The optimizer holds the local shards (init_fn).
+                leaves = [p for group in opt.param_groups
+                          for p in group["params"]]
+                grads = [g.to_local() for g in grads]
             for p, g in zip(leaves, grads):
                 p.grad = g
             opt.step()
@@ -262,21 +333,23 @@ class _Sharded:
                     if k == "blocks" else self._view(v, False))
                 for k, v in params.items()}
 
-    def loss_and_grads(self, params, tokens):
-        views = self.views(params)
+    def local_loss(self, params, tokens):
+        """This rank's mean loss, through the compute views; the step
+        differentiates it over the number of ranks."""
         if isinstance(tokens, DTensor):
             tokens = tokens.to_local()
-        loss = self._local_loss(views, tokens)
-        world = self.mesh.size
-        grads = torch.autograd.grad(loss / world,
-                                    transformer.leaves(params))
-        with torch.no_grad():
-            sq = torch.zeros((), dtype=torch.float32, device=self.device)
-            for g in grads:
-                copies = math.prod(
-                    self.mesh.shape[a] for a, pl in
-                    zip(self.mesh.axis_names, g.placements)
-                    if isinstance(pl, Replicate))
-                sq = sq + g.to_local().float().square().sum() / copies
-            stats = self._reduce(torch.stack([loss.detach() / world, sq]))
-        return stats[0], grads, torch.sqrt(stats[1])
+        return self._local_loss(self.views(params), tokens)
+
+    def loss_and_norm(self, loss, grads):
+        """The global-batch mean loss and the whole gradient's norm, in one
+        reduction."""
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for g in grads:
+            copies = math.prod(
+                self.mesh.shape[a] for a, pl in
+                zip(self.mesh.axis_names, g.placements)
+                if isinstance(pl, Replicate))
+            sq = sq + g.to_local().float().square().sum() / copies
+        stats = self._reduce(torch.stack([loss.detach() / self.mesh.size,
+                                          sq]))
+        return stats[0], torch.sqrt(stats[1])

@@ -197,8 +197,9 @@ def _check_steps(out, params):
             # the AdamW moments are the parameters' local shards.
             sharded = _Sharded(cfg, mesh, None, micro, torch.device("cpu"))
             params_d = state[0]
-            _, grads, _ = sharded.loss_and_grads(params_d, batch)
             leaves = transformer.leaves(params_d)
+            grads = torch.autograd.grad(
+                sharded.local_loss(params_d, batch) / mesh.size, leaves)
             out["grad_placements_match"] = all(
                 g.placements == p.placements for g, p in zip(grads, leaves))
             out["wq_placements"] = repr(
