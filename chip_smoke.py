@@ -9,11 +9,13 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases, each of which asserts:
 1. device: a CUDA card is present; print its name and power limit;
 2. build: compile every CUDA kernel of the path from ``ray_tpu_torch/ops/csrc``
-   and print ptxas's registers and spills for each instantiation;
+   and print ptxas's registers and spills for each instantiation; no bf16
+   forward spills;
 3. kernels: hold the flash-attention forward kernels (f32: FMA; bf16:
    tensor cores) against their plain PyTorch version (O and LSE) over head
    dims 16/32/64/128, f32 and bf16, causal and full, L = 256, 1024 and a
-   ragged 200, and Lq != Lk;
+   ragged 200, and Lq != Lk; bf16 at the training cells' head count and
+   width (32 heads of 128) too;
 4. entry: run ``ray_tpu_torch.entry``'s flagship forward once;
 5. serve: answer 16 requests of 1..1024 tokens through ``@serve.batch`` and
    a ``TorchPredictor`` at the width of ``bench.py``'s transformer (d_model
@@ -23,7 +25,10 @@ Phases, each of which asserts:
    finite. Every attention call must have gone through the kernel;
 6. times: the kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` at the serving shape, beside the
-   kernel's bound, and the bf16 serving rate;
+   kernel's bound, and the bf16 serving rate; then the kernel at the
+   training cells' attention shapes (B=2, H=32, D=128, causal, L=4097 and
+   16385), held against the plain version and timed beside SDPA and the
+   bound that ``perfbench/core/work.py`` counts;
 7. backward kernels: dQ, dK and dV of the dq and dkv kernels (f32: FMA;
    bf16: both on the tensor cores) against the plain backward over the
    cases of phase 3, and the same cases through the autograd Function
@@ -405,6 +410,15 @@ SERVE_WIDTH = dict(vocab_size=32000, d_model=1024, n_layers=12, n_heads=16,
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The bf16 forward over a whole launch (tests/test_torch_kernels.py): the
+# largest |LSE error| and the relative L2 error of O.
+BF16_LSE_ATOL = 1e-4
+BF16_O_REL_L2 = 1e-2
+# The training cells' attention forward, as ``perfbench/configs/`` sizes it:
+# (cell, B, L, heads, KV heads, head dim). K and V reach the kernel
+# repeated to every head.
+FWD_CELL_SHAPES = (("deepseek7b.train.s4k", 2, 4097, 32, 32, 128),
+                   ("mistral7b.train.s16k", 2, 16385, 32, 8, 128))
 # Gradients: f32 at the reference's grad tolerance (tests/test_ops.py). bf16
 # at GRAD_REL_BF16 of the largest |grad| in the case: kernel and plain
 # version compute in f32 from the same bf16 inputs and round each gradient
@@ -641,6 +655,73 @@ def backward_bounds(B, Lq, Lk, H, D, dtype, causal):
             "dkv": _bound(reads + 2 * elt * B * Lk * H * D, 4 * dot, dtype)}
 
 
+def reference_by_heads(fa, q, k, v, causal):
+    """``flash_attention_reference`` over groups of heads, each group's
+    [B, heads, Lq, Lk] f32 scores at most 1 GiB, so the cells' shapes fit
+    on the card."""
+    B, Lq, H, _ = q.shape
+    per = max(1, 2**30 // (4 * B * Lq * k.shape[1]))
+    parts = [fa.flash_attention_reference(q[:, :, h:h + per],
+                                          k[:, :, h:h + per],
+                                          v[:, :, h:h + per], causal)
+             for h in range(0, H, per)]
+    return (torch.cat([o for o, _ in parts], 2),
+            torch.cat([lse for _, lse in parts], 1))
+
+
+def check_bf16_forward(o, lse, ro, rlse, case):
+    """bf16 O and LSE against the plain version's: elementwise at TOL, then
+    over the whole launch at BF16_LSE_ATOL and BF16_O_REL_L2. Returns
+    (largest |LSE error|, relative L2 error of O)."""
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"O differs, {case}: {m}")
+    torch.testing.assert_close(lse, rlse, rtol=tol, atol=tol,
+                               msg=lambda m: f"LSE differs, {case}: {m}")
+    lse_err = (lse - rlse).abs().max().item()
+    o_rel = ((o.float() - ro.float()).norm() / ro.float().norm()).item()
+    assert lse_err <= BF16_LSE_ATOL, f"LSE off by {lse_err}, {case}"
+    assert o_rel <= BF16_O_REL_L2, f"O off by {o_rel} (relative L2), {case}"
+    return lse_err, o_rel
+
+
+def forward_cell_times(fa, device, card):
+    """Phase 6 (b): the bf16 causal forward at the training cells' shapes:
+    the kernel held against the plain version (run head by head), then
+    timed beside SDPA as the yardstick and the least time
+    ``perfbench/core/work.py`` counts (two dots on the kept pairs, Q, K and
+    V at the model's head counts read once, O and the LSE written once).
+    Returns {cell: kernel ms}."""
+    from perfbench.core import model as perf_model
+    from perfbench.core import work
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    times = {}
+    for cell, B, L, H, kv_heads, D in FWD_CELL_SHAPES:
+        q, k, v = random_qkv(gen, B, L, L, H, D, torch.bfloat16, device)
+        dims = perf_model.Dims(vocab=0, d=H * D, layers=1, heads=H,
+                               kv_heads=kv_heads, ff=0, theta=0.0, eps=0.0)
+        flops, nbytes = work.attn_fwd_work(B, L, dims)
+        bound_ms = 1e3 * work.least_seconds(flops, nbytes)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        ro, rlse = reference_by_heads(fa, q, k, v, True)
+        lse_err, o_rel = check_bf16_forward(o, lse, ro, rlse,
+                                            f"{cell}'s shape")
+        del o, lse, ro, rlse
+        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        log(f"[times] {card}: flash_attention_fwd at {cell}'s shape B={B} "
+            f"L={L} H={H} D={D} bf16 causal: |LSE error| <= {lse_err:.3g}, "
+            f"O {o_rel:.3g} relative L2; kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of "
+            f"the bound, {flops / ms / 1e9:.0f} TFLOP/s), SDPA "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+        times[cell] = ms
+        del q, k, v, qt, kt, vt
+    return times
+
+
 def random_qkv(gen, B, Lq, Lk, H, D, dtype, device):
     def draw(L):
         return torch.randn((B, L, H, D), generator=gen, device=device
@@ -659,6 +740,10 @@ def kernel_cases():
               for (Lq, Lk) in ((200, 333), (384, 128))
               for dt in (torch.float32, torch.bfloat16)
               for c in (True, False)]
+    # The training cells' heads: 32 of width 128, the blocks many.
+    cases += [(2, Lq, Lk, 32, 128, torch.bfloat16, c)
+              for (Lq, Lk) in ((200, 333), (1024, 1024))
+              for c in (True, False)]
     return cases
 
 
@@ -667,7 +752,7 @@ def check_kernel(fa, device) -> None:
     gen = torch.Generator(device=device).manual_seed(SEED)
     cases = kernel_cases()
     before = fa.launches
-    worst = {}
+    worst, whole = {}, (0.0, 0.0)
     for (B, Lq, Lk, H, D, dt, causal) in cases:
         q, k, v = random_qkv(gen, B, Lq, Lk, H, D, dt, device)
         o, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -677,16 +762,25 @@ def check_kernel(fa, device) -> None:
         case = f"B={B} Lq={Lq} Lk={Lk} H={H} D={D} {dt} causal={causal}"
         assert o.dtype == dt and lse.dtype == torch.float32, case
         assert lse.shape == (B, H, Lq), case
-        torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol,
-                                   msg=lambda m: f"O differs, {case}: {m}")
-        torch.testing.assert_close(lse, rlse, rtol=tol, atol=tol,
-                                   msg=lambda m: f"LSE differs, {case}: {m}")
+        if dt == torch.bfloat16:
+            lse_err, o_rel = check_bf16_forward(o, lse, ro, rlse, case)
+            whole = max(whole[0], lse_err), max(whole[1], o_rel)
+        else:
+            torch.testing.assert_close(
+                o, ro, rtol=tol, atol=tol,
+                msg=lambda m: f"O differs, {case}: {m}")
+            torch.testing.assert_close(
+                lse, rlse, rtol=tol, atol=tol,
+                msg=lambda m: f"LSE differs, {case}: {m}")
         err = (o.float() - ro.float()).abs().max().item()
         worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
     assert fa.launches == before + len(cases), (fa.launches, before)
     log(f"[kernels] {len(cases)} cases agree with the plain version "
         f"(O and LSE; f32 at {TOL[torch.float32]}, bf16 at "
-        f"{TOL[torch.bfloat16]}); largest |dO| {worst}")
+        f"{TOL[torch.bfloat16]}, and over a launch |LSE error| <= "
+        f"{BF16_LSE_ATOL}, O at {BF16_O_REL_L2} relative L2); largest |dO| "
+        f"{worst}; bf16's largest |LSE error| {whole[0]:.3g}, relative L2 "
+        f"of O {whole[1]:.3g}")
 
 
 def last_token_logits(cfg, params, batch):
@@ -6556,6 +6650,9 @@ def main() -> int:
         log(f"[build] {r.name}: {r.seconds:.1f} s -> {r.path.name}")
         for line in ptxas_summary(r.log):
             log(f"[build]   {line}")
+            if line.startswith("fwd_bf16_kernel"):
+                assert "0 bytes spill stores, 0 bytes spill loads" in line, \
+                    line
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
     cpp_build = start_cpp_build()   # phase 27's program, waited for there
     lap(2)
@@ -6594,12 +6691,11 @@ def main() -> int:
     D, dt = SERVE_WIDTH["d_model"] // H, torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     q, k, v = random_qkv(gen, B, L, L, H, D, dt, device)
-    o, _ = fa.flash_attention_fwd(q, k, v, True)
-    ro, _ = fa.flash_attention_reference(q, k, v, True)
-    torch.testing.assert_close(o.float(), ro.float(), rtol=TOL[dt],
-                               atol=TOL[dt])
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    ro, rlse = fa.flash_attention_reference(q, k, v, True)
+    check_bf16_forward(o, lse, ro, rlse, "the serving shape")
     max_abs_err = (o.float() - ro.float()).abs().max().item()
-    del o, ro
+    del o, lse, ro, rlse
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
@@ -6614,6 +6710,7 @@ def main() -> int:
         f"{100 * served['n_layers'] * ms / served['forward_ms']:.1f}% of "
         f"the batch forward")
     del q, k, v, qt, kt, vt
+    forward_cell_times(fa, device, card)
     lap(6)
 
     # 7. backward kernels against their plain versions

@@ -5,54 +5,92 @@
 // full attention over q [B, Lq, H, D] and k/v [B, Lk, H, D] with an online
 // softmax, returning O in the input dtype and LSE = m + log(l) in f32 as
 // [B, H, Lq]. Two kernels, chosen by the dtype alone:
-// - fwd_bf16_kernel, bf16 inputs: every product on the tensor cores (wgmma);
+// - fwd_bf16_kernel, bf16 inputs: every product on the tensor cores (wgmma),
+//   a TMA producer warpgroup feeding two consumer warpgroups;
 // - fwd_kernel, f32 inputs: every product an f32 FMA, so f32 keeps IEEE f32
 //   parity (2e-5) with the dense reference.
 //
-// What bounds it on an H100: at the serving shape (B=8, L=1024, H=16, D=64,
-// bf16, causal) the data is ~67 MB (Q, K, V read once, O written once:
-// ~20 us at 3.35 TB/s) and the causal work 17.2 GFLOP (~17 us at the 989
-// TFLOP/s bf16 tensor-core rate), so the least time is set by the bytes, and
-// the two are close. No kernel on the f32 FMA units (67 TFLOP/s) can come
-// under 0.257 ms for that work, so the bf16 kernel puts both dots on the
-// tensor cores and overlaps its loads with them.
+// What bounds it on an H100. The training shapes (B=2, H=32, D=128, causal)
+// are bound by operations: 4 B H D x kept pairs is 0.275 TFLOP at L=4097
+// and 4.40 TFLOP at L=16385, 0.28 and 4.45 ms at the 989 TFLOP/s bf16
+// tensor-core rate, against 0.08 and 0.32 ms to read Q, K, V and write O at
+// 3.35 TB/s. So the kernel has to keep the tensor cores busy: the softmax
+// between the two products (scale, mask, row max, one exp2f per score, row
+// sum) must run while a product does, and no thread that issues wgmma may
+// spend its time on loads. The serving buckets (B=1..8, L=128..4096) are
+// bound by bytes at the short end and by operations from L=1024 on.
 //
-// bf16 design (FlashAttention-3's shape, kept simple).
-// - One block of one warpgroup (128 threads) per (b*h, 64-row Q tile), Q
-//   tiles issued last-first so the longest causal rows start first; the
-//   block loops over 64-row K/V tiles up to the causal diagonal, skipping
-//   the tiles _fwd_kernel skips (ik*BK >= (iq+1)*BQ). The TPU carried m, l
-//   and the accumulator in VMEM across sequential grid steps; here they
-//   live in registers.
-// - Q, K and V stay bf16 in shared memory in wgmma's swizzled layout
-//   (hopper.cuh), loaded with 16-byte cp.async copies in two stages, so K/V
-//   tile j+1 arrives while tile j is computed; rows past L are zero-filled
-//   by the copy, which gives the zeroed pad rows of _fwd_kernel:64-69.
-// - S = Q K^T: wgmma m64n64k16, A = Q and B = K from shared memory, both
-//   K-major, D/16 k-steps, f32 accumulators.
+// It replaces a bf16 design of one warpgroup per 64-row Q tile: all 128
+// threads issued cp.async copies of 64-row K/V tiles into a 2-stage ring
+// behind a __syncthreads a tile, and waited for S = QK^T before the softmax,
+// so the exponentials ran with the tensor cores idle (24% of their peak a
+// launch at L=16385).
+//
+// bf16 design (FlashAttention-3's shape).
+// - One block per (b*h, Q tile of 128 rows): two consumer warpgroups and
+//   one producer warpgroup, 384 threads, at every shape. (A one-consumer
+//   form of 64-row tiles, meant to spread short serving batches over more
+//   SMs, measured slower than this one at every shape tried on an H100,
+//   down to B=1, H=32, L=128.)
+//   The grid is (Q tile, b*h), last Q tile first: the longest causal rows
+//   of a head start first, and the blocks on the card at one time share one
+//   or two heads' K and V through L2 (a head's K and V are 8 MB at
+//   L=16385; the 64 heads of a training step are 0.5 GB).
+// - Producer: gives its registers back (setmaxnreg down to 24); one
+//   thread issues TMA loads: the block's Q tile once, then K_j and V_j into
+//   a ring of 2 stages, each with a full and an empty mbarrier for K and for
+//   V. K_j is released as soon as S_j is in registers, V_j once P_j V_j is
+//   done, so each load has a whole step to land. The tensor maps are built
+//   on the host for each launch (cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint, so the build stays plain nvcc) over [B, L, H,
+//   D] with the wrapper's strides, in boxes of SWE columns swizzled as
+//   hopper.cuh's SwTile; rows past L arrive as zeros, which gives the zeroed
+//   pad rows of _fwd_kernel:64-69.
+// - Consumers: take registers (setmaxnreg up to 240); each owns 64 rows of
+//   the Q tile and both read the same K/V stage, which halves shared-memory
+//   and L2 traffic per Q row against 64-row blocks. K/V tiles are BKV = 128
+//   rows at every head dim: at D=128, Q 32 KB + 2 x (K 32 KB + V
+//   32 KB) = 160 KB of shared memory, one block an SM.
+// - Overlap inside a consumer. Step j issues S_j = Q K_j^T (wgmma
+//   m64n128k16, A and B from shared memory, K-major), rescales O by the
+//   factor of step j - 1, issues O += P_{j-1} V_{j-1} (m64nDk16, P as bf16
+//   A fragments straight from the score registers, V MN-major), and waits
+//   with wgmma.wait_group 1 for S_j alone: the softmax of S_j runs while
+//   P_{j-1} V_{j-1} is on the tensor cores.
+// - Ping-pong between the consumers: named barriers 1 and 2 pass the turn
+//   to issue products back and forth (bar.sync on one's own, bar.arrive on
+//   the other's), so while one consumer's products run, the other runs its
+//   softmax.
 // - Online softmax on the accumulator fragment: each row lives in 4 lanes,
 //   so row max is two shuffles; row sums stay per thread until the end. The
 //   mask is applied only on tiles that cross the diagonal or the ragged
-//   edge, with the TPU's semantics: masked scores -1e30 with probability
-//   exactly 0, m starting at -1e30, l clamped at 1e-30 before the division
-//   and the log.
-// - O += P V: P rounded to bf16 in registers is wgmma's A operand straight
-//   from the accumulator fragment (no shared-memory round trip); B = V from
-//   shared memory, MN-major, N = D.
+//   edge, with the TPU's semantics: masked scores count as -1e30 in the row
+//   max (softmax_step holds them as -inf, which gives the same max) with
+//   probability exactly 0, m starting at -1e30, l clamped at 1e-30 before
+//   the division and the log. O is rescaled only where a row's max moved.
 // - Precision: QK^T from bf16 operands accumulates exactly what the TPU's
 //   f32 upcast computes (a bf16 x bf16 product is exact in f32). Only P is
-//   rounded, to bf16 (2^-9 relative) before PV; the tolerance is unchanged.
+//   rounded, to bf16 (2^-9 relative) before PV; every accumulator is f32;
+//   the exponential is exp2f with LOG2E. O is written in bf16 from
+//   registers, LSE as m + log(l) in f32.
 // - f32 inputs: the FMA kernel below, 256 threads as a 16 x 16 grid over a
 //   64 x 64 score tile, f32 tiles in shared memory.
 // - The kernels allocate nothing: the caller passes O and LSE. They launch
-//   on the caller's stream and the entry point returns cudaGetLastError().
+//   on the caller's stream and the entry point returns cudaGetLastError(),
+//   or TMAP_ERROR (+ the CUresult) when a tensor map cannot be built.
+
+#include <cuda.h>
+#include <math.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // Q rows per block
-constexpr int BK = 64;        // K/V rows per inner tile
+constexpr int BQ = 64;        // f32 kernel: Q rows per block
+constexpr int BK = 64;        // f32 kernel: K/V rows per inner tile
+constexpr int BKV = 128;      // bf16 kernel: K/V rows per tile
+constexpr int STAGES = 2;     // bf16 kernel: K/V tiles in flight
+constexpr int TMAP_ERROR = 10000;
 constexpr int THREADS = 256;  // f32 kernel: 16 x 16
 constexpr int TM = 4;         // f32 kernel: rows per thread
 constexpr int TN = 4;         // f32 kernel: score columns per thread
@@ -224,141 +262,248 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
 // bf16 inputs: both products on the tensor cores (design in the header).
 template <int D>
 struct Bf16Fwd {
+  static constexpr int BQ = 128;  // Q rows of a block, 64 a consumer
   using QTile = hopper::SwTile<BQ, D>;
-  using KTile = hopper::SwTile<BK, D>;
-  // Q, then two stages of (K, V); 1024 bytes of slack to align the base.
-  static constexpr size_t SMEM = 1024 + QTile::BYTES + 2 * 2 * KTile::BYTES;
+  using KTile = hopper::SwTile<BKV, D>;
+  static constexpr int THREADS = 3 * hopper::WG_THREADS;
+  // Q, then STAGES K tiles and STAGES V tiles; 1024 bytes of slack to align
+  // the base.
+  static constexpr size_t SMEM =
+      1024 + QTile::BYTES + 2 * STAGES * KTile::BYTES;
 };
 
+// Online-softmax step over one 64 x BKV score tile held as wgmma
+// accumulators (layout in hopper.cuh): scale and mask the scores, fold
+// their row maxima into m, rescale l, and turn s into P = exp(s - m), zero
+// where masked. corr gets each row's factor for O.
+//
+// A masked score is held as -inf, not as -1e30: the row max is the same
+// (m starts at -1e30 and a stored row has a real score in its first tile),
+// and its P is exp2f(-inf) = 0 exactly, so no mask has to be kept for the
+// exponentials.
+template <int NS>
+__device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             bool need_mask, int row_a,
+                                             int k0, int lane,
+                                             const Params& p) {
+  float mx[2] = {NEG_INF, NEG_INF};
+  if (need_mask) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1;
+      const int row = row_a + 8 * r;
+      const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const bool ok = col < p.Lk && (!p.causal || row >= col);
+      s[i] = ok ? s[i] * p.scale : -INFINITY;
+      mx[r] = fmaxf(mx[r], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      s[i] *= p.scale;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  }
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+    mb[r] = m_new * LOG2E;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2f(fmaf(s[i], LOG2E, -mb[r]));
+    l[r] += s[i];
+  }
+}
+
+// Bounded for 3 warpgroups, so a thread starts with at most 168 registers
+// and setmaxnreg moves them from producer to consumers.
 template <int D>
-__global__ void __launch_bounds__(hopper::WG_THREADS)
-    fwd_bf16_kernel(Params p) {
+__global__ void __launch_bounds__(3 * hopper::WG_THREADS, 1)
+    fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, Params p) {
   using namespace hopper;
-  using QT = typename Bf16Fwd<D>::QTile;
-  using KT = typename Bf16Fwd<D>::KTile;
-  constexpr int NS = BK / 2;  // score accumulators a thread
-  constexpr int NO = D / 2;   // output accumulators a thread
-  static_assert(NS <= 32, "mask bits fit one word");
+  using F = Bf16Fwd<D>;
+  using QT = typename F::QTile;
+  using KT = typename F::KTile;
+  constexpr int NS = BKV / 2;  // score accumulators a thread
+  constexpr int NO = D / 2;    // output accumulators a thread
+  constexpr int CB = D / KT::SWE;  // column blocks of a tile: TMA boxes
 
   extern __shared__ unsigned char smem_raw[];
+  __shared__ alignas(8) uint64_t bars[1 + 4 * STAGES];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t kv_s = q_s + QT::BYTES;  // stage s: K, then V
-  constexpr uint32_t STAGE = 2 * KT::BYTES;
+  const uint32_t k_s = q_s + QT::BYTES;  // stage t at + t * KT::BYTES
+  const uint32_t v_s = k_s + STAGES * KT::BYTES;
+  // mbarriers: Q full; then, one a stage each, K full, K empty, V full,
+  // V empty.
+  const uint32_t q_full = smem_u32(bars);
+  const uint32_t k_full = q_full + 8, k_empty = k_full + 8 * STAGES;
+  const uint32_t v_full = k_empty + 8 * STAGES, v_empty = v_full + 8 * STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int iq = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = iq * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * F::BQ;
+  int nk = (p.Lk + BKV - 1) / BKV;
+  if (p.causal) nk = min(nk, (q0 + F::BQ + BKV - 1) / BKV);
 
-  const __nv_bfloat16* qp =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kp =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vp =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  __nv_bfloat16* op =
-      static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int t = 0; t < STAGES; ++t) {
+      mbar_init(k_full + 8 * t, 1);
+      mbar_init(v_full + 8 * t, 1);
+      mbar_init(k_empty + 8 * t, 8);  // one arrival a consumer warp
+      mbar_init(v_empty + 8 * t, 8);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
 
-  int nk = (p.Lk + BK - 1) / BK;
-  if (p.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  if (tid < WG_THREADS) {
+    // Producer warpgroup: one thread keeps the loads in flight.
+    regs_dec<24>();
+    if (tid == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_expect_tx(q_full, QT::BYTES);
+      for (int c = 0; c < CB; ++c)
+        tma_load_4d(q_s + c * QT::BLOCK, &tm_q, q_full, c * KT::SWE, q0, h,
+                    b);
+      for (int j = 0; j < nk; ++j) {
+        const int t = j % STAGES;
+        const uint32_t free_parity = ((j / STAGES) & 1) ^ 1;
+        const uint32_t kt = k_s + t * KT::BYTES, vt = v_s + t * KT::BYTES;
+        mbar_wait(k_empty + 8 * t, free_parity);
+        mbar_expect_tx(k_full + 8 * t, KT::BYTES);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(kt + c * KT::BLOCK, &tm_k, k_full + 8 * t,
+                      c * KT::SWE, j * BKV, h, b);
+        mbar_wait(v_empty + 8 * t, free_parity);
+        mbar_expect_tx(v_full + 8 * t, KT::BYTES);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(vt + c * KT::BLOCK, &tm_v, v_full + 8 * t,
+                      c * KT::SWE, j * BKV, h, b);
+      }
+    }
+    return;
+  }
 
-  load_tile<BQ, D>(q_s, qp, p.q_sl, q0, p.Lq, tid);
-  load_tile<BK, D>(kv_s, kp, p.k_sl, 0, p.Lk, tid);
-  load_tile<BK, D>(kv_s + KT::BYTES, vp, p.v_sl, 0, p.Lk, tid);
-  cp_async_commit();
-
+  // Consumer warpgroup c: rows q0 + 64c .. q0 + 64c + 63 of the tile.
+  regs_inc<240>();
+  const int c = tid / WG_THREADS - 1;
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const uint32_t q_c = q_s + c * 64 * QT::SWB;
+  const int q0c = q0 + 64 * c;
   // This thread's rows: row_a for accumulators with (i & 2) == 0, else +8.
-  const int row_a = q0 + warp * 16 + lane / 4;
-  float o[NO], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int row_a = q0c + warp * 16 + lane / 4;
+
+  // The turn to issue products: consumer c waits on named barrier 1 + c
+  // and passes the turn with an arrival on the other's. Consumer 1 passes
+  // first, so consumer 0 starts, and skips its last pass so that every
+  // barrier ends with as many arrivals as waits.
+  auto take_turn = [&] { named_sync(1 + c, 2 * WG_THREADS); };
+  auto pass_turn = [&](bool last) {
+    if (!(last && c == 1)) named_arrive(2 - c, 2 * WG_THREADS);
+  };
+  // One arrival a warp, once the warp's wgmma reads of the stage are done.
+  auto release = [&](uint32_t bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto need_mask = [&](int k0) {
+    return k0 + BKV > p.Lk || (p.causal && k0 + BKV - 1 > q0c);
+  };
+
+  float o[NO], s[NS], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float corr[2] = {1.f, 1.f};
+  uint32_t pa[BKV / 16][4];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    const uint32_t k_s = kv_s + (j & 1) * STAGE;
-    const uint32_t v_s = k_s + KT::BYTES;
-    if (j + 1 < nk) {  // tile j + 1 into the other stage, freed at j - 1
-      const uint32_t next = kv_s + ((j + 1) & 1) * STAGE;
-      load_tile<BK, D>(next, kp, p.k_sl, k0 + BK, p.Lk, tid);
-      load_tile<BK, D>(next + KT::BYTES, vp, p.v_sl, k0 + BK, p.Lk, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the newest group: tile j (and Q) landed
-    fence_proxy_async();
-    __syncthreads();
-
-    // S = Q K^T
-    float s[NS];
 #pragma unroll
-    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+
+  auto issue_s = [&](int j) {  // S = Q K_j^T
+    const uint32_t kt = k_s + (j % STAGES) * KT::BYTES;
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BK>(s, QT::kmajor(q_s, kk), KT::kmajor(k_s, kk), kk > 0);
+      wgmma_ss<BKV>(s, QT::kmajor(q_c, kk), KT::kmajor(kt, kk), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-
-    // Mask (only where the tile crosses the diagonal or the ragged edge),
-    // online-softmax update.
-    const bool need_mask = k0 + BK > p.Lk || (p.causal && k0 + BK - 1 > q0);
-    uint32_t ok_bits = 0xffffffffu;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int r = (i >> 1) & 1;
-      if (need_mask) {
-        const int row = row_a + 8 * r;
-        const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-        const bool ok = col < p.Lk && (!p.causal || row >= col);
-        if (!ok) ok_bits &= ~(1u << i);
-        s[i] = ok ? s[i] * p.scale : NEG_INF;
-      } else {
-        s[i] *= p.scale;
-      }
-      mx[r] = fmaxf(mx[r], s[i]);
-    }
-    float mb[2], corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      mb[r] = m_new * LOG2E;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int r = (i >> 1) & 1;
-      const float pv = exp2f(fmaf(s[i], LOG2E, -mb[r]));
-      s[i] = (ok_bits >> i) & 1u ? pv : 0.f;
-      l[r] += s[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
-
-    // O += P V, P as bf16 A fragments in registers.
-    uint32_t pa[BK / 16][4];
-    to_a_fragments<BK>(s, pa);
+  };
+  auto issue_pv = [&](int j) {  // O += P V_j
+    const uint32_t vt = v_s + (j % STAGES) * KT::BYTES;
     fence_regs(o);
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<D>(o, pa[kk], KT::mnmajor(v_s, kk), 1);
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk], KT::mnmajor(vt, kk), 1);
     wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
-    __syncthreads();  // every thread is done with this stage
-  }
-  cp_async_wait<0>();
+  };
+  // O *= corr, skipped where every row of the warp kept its max (corr is
+  // then exactly 1).
+  auto rescale_o = [&] {
+    if (__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) return;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+  };
 
+  if (c == 1) named_arrive(1, 2 * WG_THREADS);
+  mbar_wait(q_full, 0);
+  mbar_wait(k_full, 0);
+  take_turn();
+  issue_s(0);
+  pass_turn(false);
+  wgmma_wait<0>();
+  fence_regs(s);
+  release(k_empty);
+  softmax_step(s, m, l, corr, need_mask(0), row_a, 0, lane, p);
+  to_a_fragments<BKV>(s, pa);
+
+  for (int j = 1; j < nk; ++j) {
+    const int t = j % STAGES, u = (j - 1) % STAGES;
+    mbar_wait(k_full + 8 * t, (j / STAGES) & 1);
+    mbar_wait(v_full + 8 * u, ((j - 1) / STAGES) & 1);
+    take_turn();
+    issue_s(j);
+    rescale_o();
+    issue_pv(j - 1);
+    pass_turn(false);
+    wgmma_wait<1>();  // S_j is in; P_{j-1} V_{j-1} may still run
+    fence_regs(s);
+    release(k_empty + 8 * t);
+    softmax_step(s, m, l, corr, need_mask(j * BKV), row_a, j * BKV, lane, p);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    release(v_empty + 8 * u);
+    to_a_fragments<BKV>(s, pa);
+  }
+  {
+    const int u = (nk - 1) % STAGES;
+    mbar_wait(v_full + 8 * u, ((nk - 1) / STAGES) & 1);
+    take_turn();
+    rescale_o();
+    issue_pv(nk - 1);
+    pass_turn(true);
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+
+  __nv_bfloat16* op =
+      static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
   float li[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -384,6 +529,62 @@ __global__ void __launch_bounds__(hopper::WG_THREADS)
   }
 }
 
+// cuTensorMapEncodeTiled, from the CUDA library the runtime loaded (null
+// where it has none).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a [B, L, H, D] bf16 tensor (D contiguous; element strides
+// sb, sl, sh) read in boxes of `rows` x SWE elements, swizzled as
+// SwTile<rows, D> lays out one column block. Returns 0 or a TMAP_ERROR code.
+template <int D>
+int tensor_map(CUtensorMap* map, const void* base, int B, int L, int H,
+               long long sb, long long sl, long long sh, int rows) {
+  constexpr int SWE = hopper::SwTile<64, D>::SWE;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return TMAP_ERROR;
+  // A dim of one index is never stepped over: give it a stride TMA takes.
+  const cuuint64_t any = 2ull * D;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {L > 1 ? 2ull * sl : any,
+                                 H > 1 ? 2ull * sh : any,
+                                 B > 1 ? 2ull * sb : any};
+  const cuuint32_t box[4] = {(cuuint32_t)SWE, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      SWE == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : (SWE == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : TMAP_ERROR + (int)res;
+}
+
 template <int D>
 cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -396,29 +597,38 @@ cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
 }
 
 template <int D>
-cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = Bf16Fwd<D>::SMEM;
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  using F = Bf16Fwd<D>;
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map<D>(&tq, p.q, B, p.Lq, p.H, p.q_sb, p.q_sl, p.q_sh,
+                          F::BQ);
+  if (err == 0)
+    err = tensor_map<D>(&tk, p.k, B, p.Lk, p.H, p.k_sb, p.k_sl, p.k_sh, BKV);
+  if (err == 0)
+    err = tensor_map<D>(&tv, p.v, B, p.Lk, p.H, p.v_sb, p.v_sl, p.v_sh, BKV);
+  if (err != 0) return err;
   static hopper::SmemLimit limit;
-  cudaError_t err = limit.raise((const void*)fwd_bf16_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + BQ - 1) / BQ, B * p.H);
-  fwd_bf16_kernel<D><<<grid, hopper::WG_THREADS, smem, stream>>>(p);
+  const cudaError_t raised =
+      limit.raise((const void*)fwd_bf16_kernel<D>, F::SMEM);
+  if (raised != cudaSuccess) return raised;
+  const dim3 grid((p.Lq + F::BQ - 1) / F::BQ, B * p.H);
+  fwd_bf16_kernel<D><<<grid, F::THREADS, F::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
-  switch (dtype) {
-    case 0: return launch_f32<D>(p, B, stream);
-    case 1: return launch_bf16<D>(p, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
+int launch(const Params& p, int B, int dtype, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<D>(p, B, stream);
+  if (dtype == 1) return launch_bf16<D>(p, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t; 0 means the kernel was launched.
+// Returns a cudaError_t, or TMAP_ERROR (+ the
+// encoder's CUresult) when a tensor map cannot be built; 0 means the kernel
+// was launched.
 extern "C" int ray_tpu_torch_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int device, int B, int H, int Lq, int Lk, int D, int dtype, int causal,

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the bf16 tensor-core attention
 // kernels: 16-byte cp.async copies into 128/64/32-byte swizzled shared
-// tiles, wgmma shared-memory descriptors for those tiles, and warpgroup
-// matrix multiplies m64nNk16 (bf16 inputs, f32 accumulators) with A read
-// from shared memory or from registers.
+// tiles, TMA tile loads into the same tiles with mbarrier completion,
+// named barriers and register reallocation for warp-specialised kernels,
+// wgmma shared-memory descriptors for those tiles, and warpgroup matrix
+// multiplies m64nNk16 (bf16 inputs, f32 accumulators) with A read from
+// shared memory or from registers.
 //
 // Register layouts (PTX ISA, "wgmma register fragments"). In a warpgroup of
 // 128 threads, warp w = tid / 32 owns accumulator rows 16w .. 16w + 15; lane
@@ -24,7 +26,9 @@
 // either K-major (rows are M or N, D is the reduced dimension) or MN-major
 // (rows are the reduced dimension, D is N), so one copy of Q, K, V or dO in
 // shared memory feeds both kinds of product. Every tile starts on a
-// 1024-byte boundary, as the swizzle patterns assume.
+// 1024-byte boundary, as the swizzle patterns assume. A TMA load with
+// CU_TENSOR_MAP_SWIZZLE_{128,64,32}B and a box of [R][SWE] elements writes
+// one column block in exactly this layout.
 
 #pragma once
 
@@ -156,6 +160,83 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
+// mbarrier in shared memory: init (one thread, then fence_mbarrier_init
+// and a block barrier), arrive, arrive with an expected transaction byte
+// count (the TMA loads that complete on it bring those bytes), and a wait
+// for the phase of the given parity to complete. A fresh barrier is in
+// phase 0, so a wait on parity 1 returns at once.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: copy the box at element coordinates (c0, c1, c2, c3), innermost
+// first, of the tensor map `map` (a __grid_constant__ kernel parameter)
+// into shared memory at dst; the bytes complete on mbarrier bar. Elements
+// outside the tensor are written as zeros and count as bytes all the same.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Named barriers 1..15 (0 is __syncthreads'): `count` threads, a multiple
+// of 32, take part; sync waits, arrive does not.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Register reallocation between warpgroups (all 128 threads of the
+// warpgroup execute it): a producer gives registers back, a consumer takes
+// them. R is a multiple of 8 in [24, 256].
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -164,6 +245,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are in
+// flight (the newest N).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keep the compiler from moving reads or writes of registers that an
@@ -199,8 +286,8 @@ __device__ __forceinline__ void to_a_fragments(const float (&d)[N / 2],
 }
 
 // D (64 x N, f32) = or += A (64 x 16, shared, K-major) * B (16 x N, shared,
-// K-major, i.e. stored N x 16). accumulate = 0 overwrites D. N = 32 or 64:
-// the score tiles' widths.
+// K-major, i.e. stored N x 16). accumulate = 0 overwrites D. N = 32, 64 or
+// 128: the score tiles' widths.
 template <int N>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                          int accumulate);
@@ -267,6 +354,17 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 template <>

@@ -109,11 +109,11 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> None:
     """Raise on what the CUDA kernels do not take.
 
-    The bf16 kernels copy 16-byte chunks into shared memory with
-    ``cp.async``, so each bf16 tensor must start on a 16-byte boundary and
-    its batch, sequence and head strides must be multiples of 16 bytes (8
-    elements). The f32 kernels read element by element and take any
-    layout that is contiguous in head_dim."""
+    The bf16 kernels copy 16-byte chunks into shared memory (the forward
+    with TMA, dq and dkv with ``cp.async``), so each bf16 tensor must start
+    on a 16-byte boundary and its batch, sequence and head strides must be
+    multiples of 16 bytes (8 elements). The f32 kernels read element by
+    element and take any layout that is contiguous in head_dim."""
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash-attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -353,10 +353,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``torch.inference_mode()``, ``torch.no_grad()``, or no input that
     requires grad) it runs the forward alone and saves nothing.
     ``block_q``/``block_k`` keep the JAX signature; they are tiling hints
-    that change no result. The CUDA kernels fix their own tiles: 64 Q rows
-    by 64 K rows a step in the forward and dq (32 K rows for bf16 dq at
-    head_dim 128), and in dkv 64 K rows by 64 Q rows (32 for bf16 at
-    head_dim 128).
+    that change no result. The CUDA kernels fix their own tiles: in the
+    forward 64 Q rows by 64 K rows a step for f32 and 128 Q rows by 128 K
+    rows for bf16; in dq 64 Q rows by 64 K rows (32 for bf16 at head_dim
+    128); in dkv 64 K rows by 64 Q rows (32 for bf16 at head_dim 128).
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -403,3 +403,38 @@ def test_tensor_core_rounding_fits_the_bf16_tolerance(shape, causal):
         torch.testing.assert_close(
             g.float(), w, rtol=1e-2, atol=1e-2 * w.abs().max().item(),
             msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("D", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_launches_hand_each_entry_point_its_arguments(monkeypatch, dtype, D):
+    """The forward, dq and dkv launches hand their C entry points as many
+    tensors as ``_ENTRY_POINTS`` binds pointers, and three strides for each
+    [B, L, H, D] one, as many as it binds int64s; each launch is counted
+    once. The launch itself is stubbed: CPU tensors reach the launchers
+    only here."""
+    handed = []
+    monkeypatch.setattr(
+        fa, "_run_kernel",
+        lambda symbol, tensors, q, k, causal, scale:
+        handed.append((symbol, tensors, causal, scale)))
+    B, Lq, Lk, H = 2, 200, 333, 3
+    q = torch.zeros((B, Lq, H, D), dtype=dtype)
+    k = v = torch.zeros((B, Lk, H, D), dtype=dtype)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out, lse = fa._launch(q, k, v, True, 0.125)
+    assert (out.shape, out.dtype) == (q.shape, dtype)
+    assert (lse.shape, lse.dtype) == ((B, H, Lq), torch.float32)
+    dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, torch.zeros_like(q),
+                                True, 0.125)
+    assert [t.shape for t in (dq, dk, dv)] == [q.shape, k.shape, v.shape]
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    assert [h[0] for h in handed] == list(fa._ENTRY_POINTS)
+    for symbol, tensors, causal, scale in handed:
+        _, n_ptr, n_strides = fa._ENTRY_POINTS[symbol]
+        assert len(tensors) == n_ptr, symbol
+        assert 3 * sum(t.dim() == 4 for t in tensors) == n_strides, symbol
+        assert all(a is b for a, b in zip(tensors, (q, k, v))), symbol
+        assert (causal, scale) == (True, 0.125), symbol
