@@ -63,6 +63,7 @@ PERF_HISTOGRAMS = frozenset({
     "train.report",
     "train.ckpt_enqueue",
     "train.optimizer",  # the optimizer phase's device time (train/step.py)
+    "moe.dispatch",  # an MoE layer's route plus combine (models/moe.py)
     # jit compile detection (goodput ledger's runtime mirror of R21)
     "jit.compile",
     # drain / lifecycle

@@ -62,7 +62,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.profiler import record_function
 
 from ray_tpu_torch import DeviceLike, resolve_device
-from ray_tpu_torch.models import transformer
+from ray_tpu_torch.models import moe, transformer
 from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.observability import goodput, perf
 from ray_tpu_torch.parallel import (ShardingRules, batch_sharding,
@@ -257,6 +257,8 @@ class _Sharded:
         if device.type != mesh.device_type:
             raise ValueError(f"the mesh is on {mesh.device_type}, the step "
                              f"on {device}")
+        if cfg.moe:
+            moe.check_mesh(mesh)
         self.cfg, self.mesh, self.device = cfg, mesh, device
         self.num_microbatches = num_microbatches
         self.rules = rules or ShardingRules()
@@ -329,8 +331,8 @@ class _Sharded:
 
     def views(self, params):
         """The compute views of a placed parameter tree."""
-        return {k: (transformer._tree_map(lambda p: self._view(p, True), v)
-                    if k == "blocks" else self._view(v, False))
+        return {k: transformer._tree_map(
+                    lambda p: self._view(p, k in ("blocks", "moe_blocks")), v)
                 for k, v in params.items()}
 
     def local_loss(self, params, tokens):

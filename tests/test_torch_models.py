@@ -99,6 +99,23 @@ def test_loss_and_grads_match_jax(use_flash, n_kv_heads):
                                    rtol=2e-4, atol=2e-4, err_msg=path)
 
 
+def test_embedding_grad_of_repeated_ids_matches_jax():
+    """The embedding's gradient when a few ids fill the batch (their rows'
+    gradients summed over many positions) against the JAX ``loss_fn``'s,
+    f32, at the tolerance above."""
+    jcfg, cfg = _configs()
+    np_params = _jax_params_numpy(jcfg)
+    tokens = _tokens(6, (2, 65), vocab=3)
+    _, want = jax.value_and_grad(jax_transformer.loss_fn)(
+        jax.tree.map(jnp.asarray, np_params), jnp.asarray(tokens), jcfg)
+    params = transformer.params_from_numpy(np_params, cfg, "cpu")
+    _, got = _port_loss_and_grads(params, torch.tensor(tokens), cfg)
+    np.testing.assert_allclose(got["embed"].numpy(),
+                               np.asarray(want["embed"]), rtol=2e-4,
+                               atol=2e-4)
+    assert np.count_nonzero(np.abs(got["embed"].numpy()).sum(1)) == 3
+
+
 def test_remat_gives_the_same_gradients():
     """Per-block checkpointing recomputes the blocks in the backward; the
     loss and every gradient stay the same."""
