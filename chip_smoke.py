@@ -41,7 +41,9 @@ Phases, each of which asserts:
    transformer of phase 5 at full depth, bf16, remat on, default AdamW,
    batch 8 x 1025 tokens: 1 warm-up step and 5 measured steps on one seeded
    batch; losses finite and falling, 2 x n_layers forward and n_layers dq
-   and dkv launches a step; step time, tokens/s, peak memory; a
+   and dkv launches a step, and one AdamW launch (``ops/adamw.py``, a
+   launch a table of leaves; also checked in phases 17 (a) and 19 (a));
+   step time, tokens/s, peak memory; a
    ``torch.profiler`` trace of 3 steps: the device's busy share and the
    operators that take its time;
 10. backward times: each backward kernel, the plain backward and PyTorch's
@@ -363,7 +365,20 @@ Phases, each of which asserts:
    the C++ requests/s both ways beside phase 24's direct and Ray Client
    rates, and the mean JSON bytes of a request and an answer.
 
-Kernel times (phases 6 and 10) are device times: ``time_ms`` enqueues n
+28. the one-pass AdamW kernel (``ray_tpu_torch/ops/csrc/adamw.cu``), run
+   after phase 10, at each training cell's f32 leaf set (2.458 B, 2.433 B
+   and 2.013 B parameters; ``perfbench/configs/``): one launch steps every
+   leaf, each leaf's param and moments equal ``adamw_reference``'s at rtol
+   1e-6 and its sum of g*g equals ``g.square().sum()``; its time
+   beside its bound (28 bytes a parameter at 3.35 TB/s), the plain
+   version's, the parent step's optimizer phase (the norm's own pass and
+   ``torch.optim.AdamW``'s foreach passes) and ``torch.optim.AdamW(fused=
+   True)`` as ``library_ms`` (the port never calls it); and the memory
+   each adds past the state it steps. Alone: ``python3 -c "import torch,
+   chip_smoke as cs; cs.adamw_phase(torch.device('cuda'),
+   cs.card_line())"``.
+
+Kernel times (phases 6, 10 and 28) are device times: ``time_ms`` enqueues n
 calls back to back between two CUDA events and divides, so a kernel is not
 charged its wrapper's host path.
 
@@ -419,6 +434,13 @@ BF16_O_REL_L2 = 1e-2
 # repeated to every head.
 FWD_CELL_SHAPES = (("deepseek7b.train.s4k", 2, 4097, 32, 32, 128),
                    ("mistral7b.train.s16k", 2, 16385, 32, 8, 128))
+# Phase 28: the training cells' f32 leaf sets, as ``perfbench/configs/``
+# sizes them: (cell, config). The AdamW pass's bound moves 28 bytes a
+# parameter: p, g, m and v read, p, m and v written.
+ADAMW_CELLS = (("deepseek7b.train.s4k", "deepseek-llm-7b.stage8"),
+               ("deepseekmoe16b.train.s4k", "deepseek-moe-16b.stage14.ep4"),
+               ("mistral7b.train.s16k", "mistral-7b-v0.3.stage8"))
+ADAMW_BYTES_PER_PARAM = 28
 # Gradients: f32 at the reference's grad tolerance (tests/test_ops.py). bf16
 # at GRAD_REL_BF16 of the largest |grad| in the case: kernel and plain
 # version compute in f32 from the same bf16 inputs and round each gradient
@@ -720,6 +742,151 @@ def forward_cell_times(fa, device, card):
         times[cell] = ms
         del q, k, v, qt, kt, vt
     return times
+
+
+def adamw_cell_shapes(config_name):
+    """The leaf shapes of a training cell's configuration, in the port's
+    leaf order (``perfbench``'s leaf specs)."""
+    from perfbench.core import model as perf_model
+    from perfbench.core import moe_model
+    config = json.loads((REPO / "perfbench" / "configs" /
+                         f"{config_name}.json").read_text())
+    dims = perf_model.dims(config)
+    specs = (moe_model.leaf_specs(dims, moe_model.experts(config))
+             if "n_routed_experts" in config else perf_model.leaf_specs(dims))
+    return [tuple(shape) for _, shape, _, _ in specs]
+
+
+def _prime_adamw(opt, params, exp_avgs, exp_avg_sqs, step_device):
+    """Give a ``torch.optim.AdamW`` the pass's moments as its state (no
+    copy), at step 1."""
+    for p, m, v in zip(params, exp_avgs, exp_avg_sqs):
+        opt.state[p] = {"step": torch.tensor(1.0, device=step_device),
+                        "exp_avg": m, "exp_avg_sq": v}
+
+
+def adamw_against_plain(aw, state, coefs, cell):
+    """Phase 28's check at one leaf set: the kernel against the plain
+    version, one leaf a round so that the copies stay within the card. Each
+    round steps every leaf in one launch and holds one leaf's p, m and v to
+    the plain version run on copies taken before it; the moments are zero
+    in round 0 and a round's step further on in each later one. Returns
+    the largest |error| (a function of its own, so that no copy outlives
+    it and the phase's memory readings)."""
+    params, grads, exp_avgs, exp_avg_sqs = state
+    n = sum(p.numel() for p in params)
+    launches = -(-len(params) // aw.MAX_LEAVES)
+    want = torch.stack([g.square().sum() for g in grads])
+    err = 0.0
+    for i in range(len(params)):
+        copies = [t[i].detach().clone()
+                  for t in (params, exp_avgs, exp_avg_sqs)]
+        before = (aw.adamw_launches, aw.adamw_elements)
+        sums = aw.adamw_step(*state, coefs)
+        torch.cuda.synchronize()
+        assert (aw.adamw_launches, aw.adamw_elements) == (
+            before[0] + launches, before[1] + n), (
+            aw.adamw_launches, aw.adamw_elements, before)
+        torch.testing.assert_close(sums, want, rtol=1e-5, atol=0)
+        aw.adamw_reference([copies[0]], [grads[i]], [copies[1]],
+                           [copies[2]], [coefs[i]])
+        for name, got, ref in zip(("param", "exp_avg", "exp_avg_sq"),
+                                  (params[i], exp_avgs[i], exp_avg_sqs[i]),
+                                  copies):
+            # tests/test_torch_kernels.py's tolerance: FMA contraction
+            torch.testing.assert_close(
+                got.detach(), ref, rtol=1e-6,
+                atol=1e-6 * ref.abs().max().item(),
+                msg=lambda m: f"{cell} leaf {i} {name}: {m}")
+            err = max(err, (got.detach() - ref).abs().max().item())
+    log(f"[adamw] {cell}: {len(params)} rounds of {launches} launch(es) "
+        f"each, every leaf's param, exp_avg and exp_avg_sq against the plain "
+        f"version (rtol 1e-6): largest |error| {err:.3e}; sums of g*g at "
+        f"rtol 1e-5")
+    return err
+
+
+@torch.no_grad()
+def adamw_phase(device, card, cells=ADAMW_CELLS):
+    """Phase 28: the one-pass AdamW kernel (``ops/adamw.py``) at each
+    training cell's f32 leaf set. One launch steps every leaf; each leaf's
+    param and moments against ``adamw_reference`` and its sum of g*g against
+    ``g.square().sum()``; then the kernel's time beside
+    its bound (28 bytes a parameter at 3.35 TB/s), the plain version's,
+    the parent step's optimizer phase (the norm's own pass, then
+    ``torch.optim.AdamW``'s foreach passes) and ``torch.optim.AdamW(fused=
+    True)`` as the library's yardstick (the port never calls it); and the
+    memory each adds over the state it steps. Returns {cell: times}."""
+    from ray_tpu_torch.ops import adamw as aw
+    gen = torch.Generator(device=device).manual_seed(SEED + 28)
+    out = {}
+    for cell, config_name in cells:
+        free_device_caches()
+        shapes = adamw_cell_shapes(config_name)
+        n = sum(math.prod(s) for s in shapes)
+        # Weights at a model's initial scale (std 0.02): an update of
+        # lr = 3e-4 is then ~1e4 of their ulps, so the check below sees a
+        # coefficient that is off by a part in a thousand.
+        params = [torch.randn(s, generator=gen, device=device).mul_(0.02)
+                  .requires_grad_() for s in shapes]
+        grads = [torch.randn(s, generator=gen, device=device)
+                 for s in shapes]
+        exp_avgs = [torch.zeros_like(p) for p in params]
+        exp_avg_sqs = [torch.zeros_like(p) for p in params]
+        state = (params, grads, exp_avgs, exp_avg_sqs)
+        coefs = [aw.coefficients(1, 3e-4, 0.9, 0.999, 1e-8, 0.01)] * len(
+            shapes)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+
+        def extra(fn):
+            """Device bytes ``fn()`` allocates past the state, at its
+            peak."""
+            torch.cuda.reset_peak_memory_stats(device)
+            fn()
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated(device) - base
+
+        err = adamw_against_plain(aw, state, coefs, cell)
+        ms = time_ms(lambda: aw.adamw_step(*state, coefs), windows=5)
+        kernel_extra = extra(lambda: aw.adamw_step(*state, coefs))
+        plain_ms = time_ms(lambda: aw.adamw_reference(*state, coefs),
+                           windows=3, warmup=1)
+        for p, g in zip(params, grads):
+            p.grad = g
+        foreach = torch.optim.AdamW(params, lr=3e-4, weight_decay=0.01,
+                                    foreach=True)
+        _prime_adamw(foreach, params, exp_avgs, exp_avg_sqs, "cpu")
+
+        def parent_phase():
+            torch.sqrt(sum(g.square().sum() for g in grads))
+            foreach.step()
+
+        parent_ms = time_ms(parent_phase, windows=3, warmup=1)
+        parent_extra = extra(parent_phase)
+        fused = torch.optim.AdamW(params, lr=3e-4, weight_decay=0.01,
+                                  fused=True)
+        _prime_adamw(fused, params, exp_avgs, exp_avg_sqs, device)
+        library_ms = time_ms(fused.step, windows=3, warmup=1)
+        bound_ms = n * ADAMW_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3
+        log(f"[times] {card}: adamw at {cell}'s leaf set ({len(shapes)} "
+            f"leaves, {n} f32 parameters): kernel {ms:.4f} ms "
+            f"({100 * bound_ms / ms:.1f}% of the bound, "
+            f"{n * ADAMW_BYTES_PER_PARAM / ms / 1e9:.3f} TB/s), bound "
+            f"{bound_ms:.4f} ms (bytes, {ADAMW_BYTES_PER_PARAM} B a "
+            f"parameter), plain {plain_ms:.4f} ms, the parent's phase "
+            f"(norm + foreach AdamW) {parent_ms:.4f} ms, library "
+            f"AdamW(fused=True) {library_ms:.4f} ms; memory past the state: "
+            f"kernel {kernel_extra / 2**20:.1f} MiB, parent's phase "
+            f"{parent_extra / 2**30:.2f} GiB")
+        out[cell] = dict(ms=ms, plain_ms=plain_ms, parent_ms=parent_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, n=n,
+                         max_abs_err=err)
+        for p in params:
+            p.grad = None
+        del params, grads, exp_avgs, exp_avg_sqs, state, foreach, fused
+    free_device_caches()
+    return out
 
 
 def random_qkv(gen, B, Lq, Lk, H, D, dtype, device):
@@ -1538,6 +1705,17 @@ def launch_counts(fa):
     return (fa.launches, fa.dq_launches, fa.dkv_launches)
 
 
+def adamw_ops():
+    return importlib.import_module("ray_tpu_torch.ops.adamw")
+
+
+def adamw_per_step(opt):
+    """The AdamW kernel's launches in one step of ``opt``: one a table of
+    up to ``MAX_LEAVES`` leaves."""
+    n = sum(len(group["params"]) for group in opt.param_groups)
+    return -(-n // adamw_ops().MAX_LEAVES)
+
+
 def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
                 steps=TRAIN_STEPS, mesh=None, profile=True):
     """Phase 9, the training path: bf16 steps at full depth with remat
@@ -1555,23 +1733,27 @@ def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
     n_params = transformer.num_params(state[0])
     tokens = shard_batch(np.random.default_rng(SEED + 4).integers(
         0, width["vocab_size"], size=batch))
+    aw = adamw_ops()
+    adamw_step = adamw_per_step(state[1])
 
     def one_step(state):
-        before = launch_counts(fa)
+        before = launch_counts(fa) + (aw.adamw_launches,)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, tokens)
         loss = metrics["loss"].item()
         grad_norm = metrics["grad_norm"].item()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        got = tuple(a - b for a, b in zip(launch_counts(fa), before))
-        assert got == per_step, (got, per_step)
+        got = tuple(a - b for a, b in zip(
+            launch_counts(fa) + (aw.adamw_launches,), before))
+        assert got == per_step + (adamw_step,), (got, per_step, adamw_step)
         return state, loss, grad_norm, seconds
 
     state, loss, grad_norm, warm_s = one_step(state)     # warm-up
     losses, norms, times = [loss], [grad_norm], []
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    aw.adamw_launches = 0
     for _ in range(steps):
         state, loss, grad_norm, seconds = one_step(state)
         losses.append(loss)
@@ -1579,12 +1761,13 @@ def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
         times.append(seconds)
     launches = launch_counts(fa)
     assert launches == tuple(steps * c for c in per_step), launches
+    assert aw.adamw_launches == steps * adamw_step, aw.adamw_launches
     assert all(np.isfinite(losses + norms)), (losses, norms)
     assert losses[-1] < losses[0], losses
     step_s = statistics.median(times)
     n_tokens = batch[0] * (batch[1] - 1)
-    out = dict(launches=launches, step_ms=step_s * 1e3,
-               tokens_per_s=n_tokens / step_s,
+    out = dict(launches=launches, adamw_launches=aw.adamw_launches,
+               step_ms=step_s * 1e3, tokens_per_s=n_tokens / step_s,
                # bench.py's count: 6 FLOPs a parameter a token (2 forward,
                # 4 backward), remat's recompute not counted.
                model_tflops=6.0 * n_params * n_tokens / step_s / 1e12,
@@ -1594,7 +1777,8 @@ def train_phase(fa, device, width=SERVE_WIDTH, batch=TRAIN_BATCH,
     log(f"[train] bf16{where}, {n_params / 1e6:.1f} M parameters, {n} layers,"
         f" remat, batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
         f"{norms}; warm-up step {warm_s:.3f} s; launches a step "
-        f"{per_step} (forward, dq, dkv); {launches} in {steps} steps")
+        f"{per_step} (forward, dq, dkv) and {adamw_step} AdamW; {launches} "
+        f"and {out['adamw_launches']} in {steps} steps")
     if profile:
         log_profile("transformer training step",
                     profile_steps(lambda: step_fn(state, tokens)))
@@ -1989,8 +2173,10 @@ def lm_trainer_loop(config):
         assert adam_steps == {float(start)}, (adam_steps, start)
     tokens = (shard if mesh is None else session.shard_batch)(
         config["tokens"])
+    aw = adamw_ops()
     for step in range(start + 1, config["steps"] + 1):
         before = launch_counts(fa)
+        adamw_before = aw.adamw_launches
         t0 = time.perf_counter()
         state, metrics = step_fn(state, tokens)
         loss = metrics["loss"].item()
@@ -2010,6 +2196,8 @@ def lm_trainer_loop(config):
         t1 = time.perf_counter()
         session.report({"step": step, "loss": loss, "grad_norm": grad_norm,
                         "step_ms": step_ms, "launches": launched,
+                        "adamw_launches": aw.adamw_launches - adamw_before,
+                        "adamw_per_step": adamw_per_step(state[1]),
                         "resumed_from": start}, checkpoint=ckpt)
         config["timings"].append((step, ckpt is not None,
                                   (time.perf_counter() - t1) * 1e3))
@@ -2106,11 +2294,14 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
     perf.enable()
     perf.reset()
     goodput.reset()
+    aw = adamw_ops()
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    aw.adamw_launches = 0
     t0 = time.perf_counter()
     result = trainer.fit()
     fit_s = time.perf_counter() - t0
     launches = launch_counts(fa)
+    adamw_launches = aw.adamw_launches
     snap, ledger = perf.snapshot(), goodput.snapshot()
     if not perf_was:
         perf.disable()
@@ -2124,6 +2315,10 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
     assert all(m["launches"] == per_step for m in hist), \
         [m["launches"] for m in hist]
     assert launches == tuple((steps + 1) * c for c in per_step), launches
+    assert all(m["adamw_launches"] == m["adamw_per_step"] for m in hist), \
+        [(m["adamw_launches"], m["adamw_per_step"]) for m in hist]
+    assert adamw_launches == sum(m["adamw_per_step"] for m in hist), \
+        adamw_launches
     step_ms = statistics.median(m["step_ms"] for m in hist[1:])
     report_ms = [ms for _, saved, ms in timings if not saved]
     enqueue_ms = [ms for _, saved, ms in timings if saved]
@@ -2150,8 +2345,9 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
         f"start; TorchTrainer, 1 use_gpu worker on the nccl group, "
         f"mesh data=1: bf16, {n_params / 1e6:.1f} M parameters, {n} layers, "
         f"remat, batch {batch[0]} x {batch[1]}: losses {losses}, grad norms "
-        f"{norms}; launches a step {per_step} (forward, dq, dkv), {launches} "
-        f"in {steps + 1} steps; fit() {fit_s:.1f} s")
+        f"{norms}; launches a step {per_step} (forward, dq, dkv) and "
+        f"{hist[0]['adamw_per_step']} AdamW, {launches} and "
+        f"{adamw_launches} in {steps + 1} steps; fit() {fit_s:.1f} s")
     log(f"[times] {card}: TorchTrainer bf16 step {step_ms:.3f} ms (median of "
         f"{steps}; steps in ms: "
         + ", ".join(f"{m['step_ms']:.1f}" for m in hist)
@@ -2172,7 +2368,7 @@ def trainer_full_phase(rt, fa, device, card, phase9_ms, root,
     log(f"[trainer] (a) goodput ledger (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(cats.items()))
         + f"; compiles {ledger['jobs']['default']['compile_count']}")
-    return launches, step_ms
+    return launches, step_ms, adamw_launches
 
 
 def trainer_restart_phase(rt, fa, device, root, width=PARITY_WIDTH,
@@ -2410,8 +2606,8 @@ def trainer_phase(fa, device, card, phase9_ms, parity_want):
     detected: (a) full width, (b) failure and restart, (c) two workers
     sharing the card, (d) distinct cards (needs two). The checkpoint
     directory is made under the git-ignored build/ and deleted at the end.
-    Returns the launches of (a), (b) and (c), summed, and (a)'s median
-    step ms."""
+    Returns the launches of (a), (b) and (c), summed, (a)'s median step
+    ms and (a)'s AdamW launches."""
     import ray_tpu_torch as rt
     root = REPO / TRAINER_DIR
     shutil.rmtree(root, ignore_errors=True)
@@ -2421,8 +2617,8 @@ def trainer_phase(fa, device, card, phase9_ms, parity_want):
     try:
         res = rt.cluster_resources()
         assert res.get("GPU", 0) == torch.cuda.device_count(), res
-        launches, full_ms = trainer_full_phase(rt, fa, device, card,
-                                               phase9_ms, root)
+        launches, full_ms, adamw_launches = trainer_full_phase(
+            rt, fa, device, card, phase9_ms, root)
         totals = [launches]
         torch.cuda.empty_cache()
         totals.append(trainer_restart_phase(rt, fa, device, root))
@@ -2432,7 +2628,7 @@ def trainer_phase(fa, device, card, phase9_ms, parity_want):
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
-    return tuple(map(sum, zip(*totals))), full_ms
+    return tuple(map(sum, zip(*totals))), full_ms, adamw_launches
 
 
 # -- phase 18: the multi-process runtime --------------------------------------
@@ -2901,10 +3097,13 @@ def plane_trainer_loop(config):
     tokens = session.shard_batch(config["tokens"])
     perf.enable()
     perf.reset()
+    aw = adamw_ops()
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    aw.adamw_launches = 0
     report_ms = []
     for step in range(config["steps"]):
         before = launch_counts(fa)
+        adamw_before = aw.adamw_launches
         t0 = time.perf_counter()
         state, metrics = step_fn(state, tokens)
         loss = metrics["loss"].item()
@@ -2919,7 +3118,9 @@ def plane_trainer_loop(config):
                 state[0])})
         t1 = time.perf_counter()
         session.report({"step": step, "loss": loss, "grad_norm": grad_norm,
-                        "step_ms": step_ms, "launches": launched},
+                        "step_ms": step_ms, "launches": launched,
+                        "adamw_launches": aw.adamw_launches - adamw_before,
+                        "adamw_per_step": adamw_per_step(state[1])},
                        checkpoint=ckpt)
         report_ms.append((time.perf_counter() - t1) * 1e3)
     t0 = time.perf_counter()
@@ -2928,7 +3129,9 @@ def plane_trainer_loop(config):
     snap = perf.snapshot()
     perf.disable()
     session.report({"summary": True, "report_ms": report_ms,
-                    "launches": launch_counts(fa), "committed": committed,
+                    "launches": launch_counts(fa),
+                    "adamw_launches": aw.adamw_launches,
+                    "committed": committed,
                     "flush_s": flush_s,
                     "enqueue_ms": _perf_mean_ms(snap, "train.ckpt_enqueue"),
                     "save_ms": _perf_mean_ms(snap, "ckpt.save"),
@@ -2945,7 +3148,7 @@ def tensor_plane_phase(fa, device, card, phase9, phase17_ms, rates,
     checkpoint. ``phase9``: phase 9's results (its first loss and step ms);
     ``phase17_ms``: phase 17 (a)'s step ms; ``rates``: phases 16 and 18's
     bf16 requests/s. Returns the launches counted in the daemon: (forward,
-    dq, dkv) of (a) plus (b)'s forward."""
+    dq, dkv) of (a) plus (b)'s forward, and (a)'s AdamW launches."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch.cluster_utils import ProcessCluster
@@ -2964,7 +3167,7 @@ def tensor_plane_phase(fa, device, card, phase9, phase17_ms, rates,
         procs += [d["proc"] for d in cluster.daemons]
         rt.init(address=cluster.address)
         try:
-            launches = tensor_plane_paths(
+            launches, adamw_launches = tensor_plane_paths(
                 rt, serve, cluster, gpu_index, fa, device, card, phase9,
                 phase17_ms, rates, root, width, batch, steps, n_requests,
                 procs)
@@ -2992,7 +3195,7 @@ def tensor_plane_phase(fa, device, card, phase9, phase17_ms, rates,
         f"none of the {len(set(procs))} state-service and daemon processes"
         f" is left; the card's free memory {free_before} bytes before (a), "
         f"{free_after} after; the checkpoint directory is deleted")
-    return launches
+    return launches, adamw_launches
 
 
 def plane_dataset_steps(rt, card, phase9, width, batch,
@@ -3097,6 +3300,11 @@ def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
         [m["launches"] for m in hist]
     launches = tuple(summary["launches"])
     assert launches == tuple((1 + steps) * c for c in per_step), launches
+    assert all(m["adamw_launches"] == m["adamw_per_step"] for m in hist), \
+        [(m["adamw_launches"], m["adamw_per_step"]) for m in hist]
+    adamw_launches = summary["adamw_launches"]
+    assert adamw_launches == sum(m["adamw_per_step"] for m in hist), \
+        adamw_launches
     cards = cluster.daemons[gpu_index]["cards"]
     assert summary["pid"] == cluster.daemons[gpu_index]["proc"].pid and \
         summary["visible"] == ",".join(cards), summary
@@ -3110,8 +3318,9 @@ def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
         f" {n} layers, remat, batch {batch[0]} x {batch[1]}: losses "
         f"{losses} (step 0 against phase 9's {phase9['losses'][0]} at "
         f"rtol {TRAIN_RTOL}), grad norms {norms}; launches a step "
-        f"{per_step} (forward, dq, dkv) counted in the daemon's process, "
-        f"{launches} in {1 + steps} steps; the parameters committed as "
+        f"{per_step} (forward, dq, dkv) and {hist[0]['adamw_per_step']} "
+        f"AdamW counted in the daemon's process, {launches} and "
+        f"{adamw_launches} in {1 + steps} steps; the parameters committed as "
         f"{ref.manifest_name}; fit() {fit_s:.1f} s")
     log(f"[times] {card}: TorchTrainer bf16 step in a GPU daemon "
         f"{step_ms:.3f} ms (median of {steps}; steps in ms: "
@@ -3286,7 +3495,7 @@ def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
         log(f"[plane] (d) did not run: an NCCL plane over distinct cards "
             f"needs two or more, this machine has "
             f"{torch.cuda.device_count()}")
-        return launches
+        return launches, adamw_launches
     cluster.add_daemon(num_gpus=1)
     procs.append(cluster.daemons[-1]["proc"])
     gpu_addrs = [d["address"] for d in cluster.daemons if d["cards"]
@@ -3309,7 +3518,7 @@ def tensor_plane_paths(rt, serve, cluster, gpu_index, fa, device, card,
     log(f"[plane] (d) an NCCL plane over two GPU daemons on cards "
         f"{[d['cards'] for d in cluster.daemons if d['cards']]}: allreduce "
         f"matches numpy; ms {[round(ms, 3) for _, _, ms in outs]}")
-    return launches
+    return launches, adamw_launches
 
 
 # -- phase 20: the data plane --------------------------------------------------
@@ -6749,6 +6958,11 @@ def main() -> int:
         f"{step_ms:.3f} ms step: {split}")
     lap(10)
 
+    # 28. the one-pass AdamW kernel at the training cells' leaf sets
+    free_device_caches()
+    adamw_times = adamw_phase(device, card)
+    lap(28)
+
     # 11. ResNet, card against CPU in f32 (TF32 is off above)
     resnet_parity_phase(device)
     lap(11)
@@ -6809,8 +7023,8 @@ def main() -> int:
     # counted in each of (a)-(c))
     t0 = time.perf_counter()
     free_device_caches()
-    trainer_launches, trainer_ms = trainer_phase(fa, device, card, step_ms,
-                                                 parity)
+    trainer_launches, trainer_ms, trainer_adamw = trainer_phase(
+        fa, device, card, step_ms, parity)
     log(f"[trainer] phase 17 in {time.perf_counter() - t0:.1f} s")
     lap(17)
 
@@ -6829,8 +7043,8 @@ def main() -> int:
     # and collective groups across daemon processes
     t0 = time.perf_counter()
     free_device_caches()
-    plane_launches = tensor_plane_phase(fa, device, card, trained,
-                                        trainer_ms, {
+    plane_launches, plane_adamw = tensor_plane_phase(
+        fa, device, card, trained, trainer_ms, {
         "plane_threads": plane["threads"], "plane_single": plane["single"],
         "daemon_threads": daemon_rates[f"from {N_REQUESTS} threads"],
         "daemon_single": daemon_rates["from one thread"]})
@@ -6946,6 +7160,21 @@ def main() -> int:
         "bound_ms": bwd["dkv_bound"][0],
         "bound_by": bwd["dkv_bound"][1],
         "library_ms": bwd["library_ms"],
+    }, {
+        "name": "adamw",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/adamw.cu",
+        "replaces": "none (XLA fuses optax.adamw into the jitted step)",
+        # the training steps of phases 9, 17 (a) and 19 (a), each checked
+        # at one launch a step; phase 28's own launches left out
+        "launches": (trained["adamw_launches"] + trainer_adamw
+                     + plane_adamw),
+        "max_abs_err": max(t["max_abs_err"] for t in adamw_times.values()),
+        "ms": adamw_times["deepseek7b.train.s4k"]["ms"],
+        "plain_ms": adamw_times["deepseek7b.train.s4k"]["plain_ms"],
+        "bound_ms": adamw_times["deepseek7b.train.s4k"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": adamw_times["deepseek7b.train.s4k"]["library_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # One entry per kernel source in csrc/.
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "adamw")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}  # raylint: guarded-by(_lock)

@@ -11,6 +11,10 @@ contract: ``(init_fn, step_fn, shard_batch)``, with
 - ``opt_state`` is the ``torch.optim.Optimizer`` over the parameter
   leaves, and ``step_fn`` updates params and optimizer in place and returns
   the same state: the counterpart of ``donate_argnums=(0,)``;
+- the default optimizer, ``OnePassAdamW``, steps every leaf in one pass of
+  ``ops.adamw`` (a CUDA kernel on a card) that also sums each leaf's g*g,
+  so the gradient norm takes no pass of its own; where XLA fused
+  ``optax.adamw`` and ``global_norm`` into the jitted step;
 - no ``jit``: PyTorch runs eagerly. ``step_fn`` is wrapped in
   ``goodput.instrument_jit`` as the reference's is, so its first call per
   (state, tokens) signature lands in the goodput ledger's ``compile``
@@ -65,6 +69,7 @@ from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models import moe, transformer
 from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.observability import goodput, perf
+from ray_tpu_torch.ops.adamw import adamw_step, coefficients
 from ray_tpu_torch.parallel import (ShardingRules, batch_sharding,
                                     pipeline_apply, shard_pytree)
 from ray_tpu_torch.parallel.sharding import place_local
@@ -127,13 +132,89 @@ class _optimizer_phase:
                          (time.perf_counter() - self._t0) * 1e3)
 
 
+class OnePassAdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` whose step is one pass of ``ops.adamw`` over
+    every leaf: the kernel on a card, its plain version on the CPU.
+
+    ``param_groups`` and ``state[p]`` (``step``, ``exp_avg``,
+    ``exp_avg_sq``) are torch's, so a ``state_dict`` loads into either
+    class. Each group's ``lr`` is read at every step. The pass also sums
+    each leaf's g*g as it reads g: ``grad_sq`` holds those sums after a
+    step, one f32 entry a parameter in ``param_groups`` order (0 for a
+    parameter that had no grad and was skipped). ``amsgrad``,
+    ``maximize``, ``capturable``, ``differentiable`` and ``fused`` are
+    refused: the pass computes none of them."""
+
+    REFUSED = ("amsgrad", "maximize", "capturable", "differentiable",
+               "fused")
+
+    def __init__(self, params, lr: float = 1e-3,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 1e-2, **options):
+        self._refuse(options)
+        super().__init__(params, lr=lr, betas=betas, eps=eps,
+                         weight_decay=weight_decay, **options)
+        self.grad_sq: Optional[torch.Tensor] = None
+
+    @classmethod
+    def _refuse(cls, options) -> None:
+        named = [k for k in cls.REFUSED if options.get(k)]
+        if named:
+            raise ValueError(f"OnePassAdamW does not take {named}: the "
+                             f"one-pass kernel computes plain AdamW only")
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        params, grads, exp_avgs, exp_avg_sqs, coefs, slots = \
+            [], [], [], [], [], []
+        n = 0
+        for group in self.param_groups:
+            self._refuse(group)   # a loaded state_dict may name them
+            beta1, beta2 = group["betas"]
+            lr = float(group["lr"])
+            for p in group["params"]:
+                n += 1
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:   # as torch.optim.AdamW lays it out
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                params.append(p)
+                grads.append(p.grad)
+                exp_avgs.append(state["exp_avg"])
+                exp_avg_sqs.append(state["exp_avg_sq"])
+                coefs.append(coefficients(
+                    state["step"].item() + 1, lr, beta1, beta2,
+                    group["eps"], group["weight_decay"]))
+                slots.append(n - 1)
+        sums = adamw_step(params, grads, exp_avgs, exp_avg_sqs, coefs)
+        # Counted once the pass has run: leaves it refused keep their step
+        # counts, and so their bias corrections.
+        for p in params:
+            self.state[p]["step"] += 1
+        if len(slots) < n:
+            full = sums.new_zeros(n)
+            full[slots] = sums
+            sums = full
+        self.grad_sq = sums
+        return loss
+
+
 def adamw(lr: float = 3e-4, weight_decay: float = 0.01) -> OptimizerFactory:
     """``optax.adamw(lr, weight_decay=...)`` as a torch optimizer factory:
     betas (0.9, 0.999), eps 1e-8, decoupled decay on every leaf (norms
-    included: optax applies no mask)."""
+    included: optax applies no mask). The optimizer is ``OnePassAdamW``."""
     def make(params: List[torch.Tensor]) -> torch.optim.Optimizer:
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=weight_decay)
+        return OnePassAdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
     return make
 
 
@@ -215,12 +296,7 @@ def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
             grads = torch.autograd.grad(
                 loss if sharded is None else loss / sharded.mesh.size, leaves)
         with _optimizer_phase(device), torch.no_grad():
-            if sharded is None:
-                # optax.global_norm: the L2 norm over every leaf of the raw
-                # grads.
-                grad_norm = torch.sqrt(sum(g.square().sum() for g in grads))
-            else:
-                loss, grad_norm = sharded.loss_and_norm(loss, grads)
+            if sharded is not None:
                 # The optimizer holds the local shards (init_fn).
                 leaves = [p for group in opt.param_groups
                           for p in group["params"]]
@@ -230,6 +306,17 @@ def make_lm_train_step(cfg: TransformerConfig, mesh: Any = None,
             opt.step()
             for p in leaves:
                 p.grad = None
+            # optax.global_norm of the raw grads, from each leaf's sum of
+            # g*g: an optimizer with ``grad_sq`` (OnePassAdamW) summed them
+            # as it stepped; for any other they take a pass of their own.
+            leaf_sq = getattr(opt, "grad_sq", None)
+            if leaf_sq is None:
+                leaf_sq = torch.stack([g.float().square().sum()
+                                       for g in grads])
+            if sharded is None:
+                grad_norm = torch.sqrt(leaf_sq.sum())
+            else:
+                loss, grad_norm = sharded.loss_and_norm(loss, leaf_sq)
         return (params, opt), {"loss": loss.detach(), "grad_norm": grad_norm}
 
     def shard_batch(tokens) -> torch.Tensor:
@@ -282,10 +369,20 @@ class _Sharded:
                              f"and d_ff {cfg.ff_dim} must split over "
                              f"tensor={tensor}")
         self.axes = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+        self.copies: Optional[torch.Tensor] = None
 
     def place(self, params):
-        return shard_pytree(params, transformer.logical_axes(self.cfg),
-                            self.mesh, self.rules)
+        params = shard_pytree(params, transformer.logical_axes(self.cfg),
+                              self.mesh, self.rules)
+        # Each leaf's replica count over the mesh, in leaf order (its
+        # gradient is placed as it is): the norm counts a leaf's g*g once.
+        self.copies = torch.tensor(
+            [math.prod(self.mesh.shape[a] for a, pl in
+                       zip(self.mesh.axis_names, p.placements)
+                       if isinstance(pl, Replicate))
+             for p in transformer.leaves(params)],
+            dtype=torch.float32, device=self.device)
+        return params
 
     def _view(self, p: DTensor, block: bool) -> torch.Tensor:
         """The compute view of a parameter, whose backward reduces the
@@ -342,16 +439,11 @@ class _Sharded:
             tokens = tokens.to_local()
         return self._local_loss(self.views(params), tokens)
 
-    def loss_and_norm(self, loss, grads):
+    def loss_and_norm(self, loss, leaf_sq):
         """The global-batch mean loss and the whole gradient's norm, in one
-        reduction."""
-        sq = torch.zeros((), dtype=torch.float32, device=self.device)
-        for g in grads:
-            copies = math.prod(
-                self.mesh.shape[a] for a, pl in
-                zip(self.mesh.axis_names, g.placements)
-                if isinstance(pl, Replicate))
-            sq = sq + g.to_local().float().square().sum() / copies
+        reduction. ``leaf_sq``: each leaf's local sum of g*g, in leaf
+        order."""
+        sq = (leaf_sq / self.copies).sum()
         stats = self._reduce(torch.stack([loss.detach() / self.mesh.size,
                                           sq]))
         return stats[0], torch.sqrt(stats[1])

@@ -14,12 +14,13 @@ import pytest
 import torch
 
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+aw = importlib.import_module("ray_tpu_torch.ops.adamw")
 
 
 def _cuda_or_skip():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the flash-attention kernels have no "
-                    "CPU mode")
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU "
+                    "mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -314,6 +315,137 @@ def test_flash_kernel_rejects_misaligned_bf16():
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_fwd(odd, k, v, True)
     assert fa.launches == before
+
+
+def _adamw_leaves(seed, device, sizes, offset_leaf=None):
+    """(p, g, m, v) per leaf, f32, from a seed; p at a model's initial
+    scale (std 0.02), so that an update of lr ~1e-3 is far above p's ulp
+    and a coefficient off by a part in a thousand shows; the moments as
+    after a few steps (m about g's scale, v positive). Leaf ``offset_leaf``
+    is a view one element into a larger buffer: off the 16-byte grid."""
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for i, n in enumerate(sizes):
+        parts = (0.02 * rng.standard_normal(n, dtype=np.float32),
+                 rng.standard_normal(n, dtype=np.float32),
+                 0.1 * rng.standard_normal(n, dtype=np.float32),
+                 1e-3 * np.abs(rng.standard_normal(n, dtype=np.float32)))
+        leaf = []
+        for x in parts:
+            t = torch.tensor(x, device=device)
+            if i == offset_leaf:
+                buf = torch.empty(n + 1, dtype=torch.float32, device=device)
+                buf[1:] = t
+                t = buf[1:]
+            leaf.append(t)
+        leaves.append(tuple(leaf))
+    return leaves
+
+
+def _assert_adamw_close(got, want, what):
+    """f32, 1e-6 relative: the kernel's compiler may fuse a multiply and an
+    add into one FMA where torch's passes round between them (about an ulp
+    a step); near zero, 1e-6 of the tensor's largest magnitude."""
+    torch.testing.assert_close(got, want, rtol=1e-6,
+                               atol=1e-6 * want.abs().max().item(),
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_matches_plain():
+    """Three steps of the one-pass kernel against ``adamw_reference`` on
+    the card, the rate changing between steps: ragged lengths (past a chunk
+    and within one), a leaf one element off the 16-byte grid (the scalar
+    path), a 1-element leaf. Params and both moments, and each leaf's sum
+    of g*g; one launch a step, every element counted."""
+    device = _cuda_or_skip()
+    sizes = [3 * 16384 + 5, 4096, 1, 1023, 70001, 16384 + 2]
+    got = _adamw_leaves(21, device, sizes, offset_leaf=4)
+    want = [tuple(t.clone() for t in leaf) for leaf in got]
+    assert got[4][0].data_ptr() % 16 != 0
+    for step, lr in enumerate((3e-4, 1e-3, 2e-4), start=1):
+        coefs = [aw.coefficients(step, lr, 0.9, 0.999, 1e-8, 0.01)] * len(sizes)
+        before = (aw.adamw_launches, aw.adamw_elements)
+        sums = aw.adamw_step(*zip(*got), coefs)
+        torch.cuda.synchronize()
+        assert (aw.adamw_launches, aw.adamw_elements) == (
+            before[0] + 1, before[1] + sum(sizes))
+        want_sums = aw.adamw_reference(*zip(*want), coefs)
+        torch.testing.assert_close(sums, want_sums, rtol=1e-5, atol=0)
+        for i, (g_leaf, w_leaf) in enumerate(zip(got, want)):
+            for name, a, b in zip(("param", "grad", "exp_avg", "exp_avg_sq"),
+                                  g_leaf, w_leaf):
+                _assert_adamw_close(a, b, f"step {step} leaf {i} {name}")
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_splits_leaves_past_one_table():
+    """More leaves than one launch's table takes: one launch each table,
+    each leaf's sum in its own slot."""
+    device = _cuda_or_skip()
+    sizes = [7 + i for i in range(aw.MAX_LEAVES + 3)]
+    got = _adamw_leaves(22, device, sizes)
+    want = [tuple(t.clone() for t in leaf) for leaf in got]
+    coefs = [aw.coefficients(1, 1e-3, 0.9, 0.999, 1e-8, 0.01)] * len(sizes)
+    before = aw.adamw_launches
+    sums = aw.adamw_step(*zip(*got), coefs)
+    assert aw.adamw_launches == before + 2
+    torch.testing.assert_close(sums, aw.adamw_reference(*zip(*want), coefs),
+                               rtol=1e-5, atol=0)
+    for g_leaf, w_leaf in zip(got, want):
+        for a, b in zip(g_leaf, w_leaf):
+            _assert_adamw_close(a, b, "leaf")
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_refuses_what_it_does_not_take():
+    """A bf16 leaf and a strided one raise before any launch."""
+    device = _cuda_or_skip()
+    p, g, m, v = _adamw_leaves(23, device, [64])[0]
+    coefs = [aw.coefficients(1, 1e-3, 0.9, 0.999, 1e-8, 0.01)]
+    before = aw.adamw_launches
+    with pytest.raises(TypeError, match="float32"):
+        aw.adamw_step([p.bfloat16()], [g.bfloat16()], [m], [v], coefs)
+    wide = torch.zeros(64, 2, device=device)
+    with pytest.raises(TypeError, match="contiguous"):
+        aw.adamw_step([wide[:, 0]], [g], [m], [v], coefs)
+    assert aw.adamw_launches == before
+
+
+@pytest.mark.cuda
+def test_one_pass_adamw_on_the_card_follows_torch_adamw():
+    """The training step's optimizer on CUDA leaves against
+    ``torch.optim.AdamW``'s foreach passes from the same state, 3 steps at
+    changing rates; ``grad_sq`` against each gradient's square sum."""
+    from ray_tpu_torch.train import adamw
+    device = _cuda_or_skip()
+    rng = np.random.default_rng(24)
+    shapes = [(4096, 3), (1,), (1023,), (8, 513)]
+    w0 = [torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                       device=device) for s in shapes]
+    ours = [w.clone().requires_grad_() for w in w0]
+    theirs = [w.clone().requires_grad_() for w in w0]
+    opt = adamw()(ours)
+    ref = torch.optim.AdamW(theirs, lr=3e-4, weight_decay=0.01,
+                            foreach=True)
+    before = aw.adamw_launches
+    for lr in (3e-4, 1e-3, 5e-4):
+        gs = [torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                           device=device) for s in shapes]
+        for o, ts in ((opt, ours), (ref, theirs)):
+            for group in o.param_groups:
+                group["lr"] = lr
+            for t, g in zip(ts, gs):
+                t.grad = g.clone()
+            o.step()
+        torch.testing.assert_close(
+            opt.grad_sq, torch.stack([g.square().sum() for g in gs]),
+            rtol=1e-5, atol=0)
+    assert aw.adamw_launches == before + 3
+    for a, b in zip(ours, theirs):
+        _assert_adamw_close(a.detach(), b.detach(), "param")
+        for key in ("exp_avg", "exp_avg_sq"):
+            _assert_adamw_close(opt.state[a][key], ref.state[b][key], key)
 
 
 @pytest.mark.cuda
